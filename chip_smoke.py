@@ -5,26 +5,39 @@
 
 Run from the root of a checkout. Phases, each fatal on failure:
   1. environment: the card's name and power limit (nvidia-smi);
-  2. build both kernels from controlvar_tpu_torch/csrc with nvcc (sm_90a);
+  2. build every kernel from controlvar_tpu_torch/csrc with nvcc (sm_90a),
+     one nvcc per source, all started together;
   3. K1 decode attention vs its plain version at every scale's (l, cur) of
-     the main path, and at the final scale under an `indep` mask;
+     the serving path, and at the final scale under an `indep` mask;
   4. K2 bisection sampling vs its plain version at every scale's row count,
      then greedy, Philox and kept-set checks at the final scale, and the
      distribution of 1e4 Philox draws (and of the unfiltered categorical,
      whose noise is made on the card) against the analytic softmax;
-  5. small-input reference: fp32 tokenizer ids on the GPU equal the CPU's,
-     and one bf16 decode step through K1 agrees with the fp32 CPU path;
-  6. the main path at full width: ControlVAR-d16 (multi_cond) and the ch-160
-     VQVAE, random weights from a seed, SamplingHarness.control_conditioned
-     on 16 seeded 256x256 control images (tokenize, 10 scales with 4-way CFG,
-     top-k 900, top-p 0.96, decode both canvases), one warm-up call and one
-     timed call, with the kernels' launch counts read around each call.
+  5. K3 flash attention forward and K4 backward vs their plain versions at
+     the d16 training shape (8, 16, 1360, 64) under the block-causal mask,
+     with q, k, v and dO strided as the training path gives them, and at a
+     small ragged shape under a causal mask, with their times, the plain
+     versions' and SDPA's (forward, and its autograd backward);
+  6. small-input reference: fp32 tokenizer ids on the GPU equal the CPU's;
+     one bf16 decode step through K1 agrees with the fp32 CPU path; one
+     tiny-config bf16 train step through K3/K4 agrees with the fp32 CPU step
+     (loss, and the direction of the whole gradient and of each block leaf's);
+  7. the training path at full width: ControlVAR-d16 (multi_cond), the
+     ch-160 VQVAE frozen inside the step, B=8 seeded 256x256 image/mask
+     batches, AdamW (OptimConfig(total_batch_size=8)), one warm-up step and
+     five timed steps, with K3/K4 launch counts read around each step;
+  8. the serving path at full width: ControlVAR-d16 (multi_cond) and the
+     ch-160 VQVAE, random weights from a seed,
+     SamplingHarness.control_conditioned on 16 seeded 256x256 control images
+     (tokenize, 10 scales with 4-way CFG, top-k 900, top-p 0.96, decode both
+     canvases), one warm-up call and one timed call, with K1/K2 launch
+     counts read around each call.
 Prints the card, a `kernels` JSON line and, last, {"ok": true, "device": ...}.
 It exits non-zero, printing no result, without CUDA or outside a checkout.
---profile adds a breakdown of the main path: host-clock phases (tokenize,
-scales, decode), then a torch.profiler pass over one more call giving the
-device busy time, the idle share and kernel time by category; its kernel
-table goes to chiprun_out/chip_smoke_profile.txt.
+--profile adds, for each path, the device busy time, the idle share and
+kernel time by category from torch.profiler over one more step or call
+(and host-clock phases of the serving call); the kernel tables go to
+chiprun_out/chip_smoke_profile_{train,serve}.txt.
 """
 from __future__ import annotations
 
@@ -38,18 +51,40 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
-# K1's limits. Per element, |got - want| <= 2^-7 (|want| + mag), mag = sum_j
-# p_j |v_j| (the plain version on |V|). Both sides round p to bf16 (rel. err
-# <= 2^-9 each), the kernel unnormalised, the plain version normalised, which
-# moves an output by up to 2^-8 mag where terms cancel; the bf16 output and
-# the kernel's sum of unrounded p add up to ~3 * 2^-9 |want|. The limit is
-# twice that worst case. Over a whole output, ||got - want|| <= 2^-6 ||want||,
-# which a dropped or misplaced K/V tile breaks. Readings on an H100 at 700 W:
-# the largest err/limit is 0.70 (1.56e-2 at cur=2, where few terms of
-# magnitude ~3 cancel) and 0.28 at the final scale (3.9e-3); the relative L2
-# error is 2.7e-3 to 3.1e-3 at every scale.
-K1_RTOL = 2.0 ** -7
-K1_REL_L2 = 2.0 ** -6
+# The attention kernels' limits (K1, K3 and K4). Per element, |got - want|
+# <= 2^-7 (|want| + mag), mag = sum_j |x_j| |y_j| over the terms of the
+# product that goes through a bf16 rounding on both sides: p.V for K1, K3
+# and K4's dv (mag = the plain version on |V|, or |P|^T |dO|), and dS.K and
+# dS^T.q for K4's dq and dk (mag = scale |dS| |K|, scale |dS|^T |q|). Both
+# sides round p (or dS) to bf16 (rel. err <= 2^-9 each) from fp32 values
+# that differ in their last bits (K1/K3 round p unnormalised, the plain
+# version normalised), which moves an output by up to 2^-8 mag where terms
+# cancel; the bf16 output and the fp32 sums add up to ~3 * 2^-9 |want|. The
+# limit is twice that worst case. Over a whole output, ||got - want|| <=
+# 2^-6 ||want||, which a dropped or misplaced tile breaks. K4 adds a floor of
+# 2^-16 max(mag): where exact arithmetic gives dS = 0 (a query row that
+# attends only to itself has P = 1 and dP = D), both sides keep the fp32
+# rounding of dP - D, ~2^-20 of its terms, which no relative limit covers. Readings on an
+# H100 at 700 W for K1: the largest err/limit is 0.70 (1.56e-2 at cur=2,
+# where few terms of magnitude ~3 cancel) and 0.28 at the final scale
+# (3.9e-3); the relative L2 error is 2.7e-3 to 3.1e-3 at every scale.
+ATTN_RTOL = 2.0 ** -7
+ATTN_REL_L2 = 2.0 ** -6
+# K3's LSE, fp32 on both sides: m + log(l) with l summed in another order
+# (and __expf against expf) over at most 1360 terms of at most 1, so the
+# difference is a few fp32 ulps of l's relative error, far below 2^-13.
+K3_LSE_ATOL = 2.0 ** -13
+# The tiny-config train step, bf16 on the card against fp32 on the CPU: the
+# loss within one bf16 rounding (2^-8 relative; the CPU's own bf16 step
+# reads 1.1e-5), and the flattened gradients at a cosine >= 0.999 (bf16
+# rounding noise of ~2^-8 per element gives 1 - 2^-17). The head and
+# embedding leaves dominate that cosine (the block leaves' gradients are
+# ~1e-6 of its norm at this init), so each gradient leaf of the blocks, which
+# the attention kernels feed, is also held to a cosine >= 0.999: the CPU's
+# own bf16 step reads 0.99998 at the worst leaf (q_bias), 50x inside it.
+TRAIN_LOSS_RTOL = 2.0 ** -8
+TRAIN_GRAD_COS = 0.999
+TRAIN_BLOCK_LEAF_COS = 0.999
 
 
 def fail(msg: str) -> None:
@@ -81,25 +116,27 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_close(name, got, want, mag) -> float:
-    """K1's output against its plain version within K1's limits; `mag` is
-    the plain version over |V|. Returns the largest absolute error."""
+def check_close(name, got, want, mag, floor: float = 0.0) -> float:
+    """An attention kernel's output against its plain version within the
+    limits above; `mag` is the sum of the magnitudes of the rounded
+    product's terms, `floor` an absolute floor of the per-element limit.
+    Returns the largest absolute error."""
     import torch
 
     got, want, mag = got.float(), want.float(), mag.float()
     if not torch.isfinite(got).all():
         fail(f"{name}: non-finite output")
     err = (got - want).abs()
-    limit = K1_RTOL * (want.abs() + mag)
+    limit = ATTN_RTOL * (want.abs() + mag) + floor
     bad = int((err > limit).sum())
     max_err, worst = float(err.max()), float((err / limit).max())
     rel_l2 = float(err.norm() / want.norm())
     print(f"{name}: max_abs_err={max_err:.3e} largest err/limit={worst:.3f} "
           f"outside the limit={bad} rel_l2={rel_l2:.3e}")
     if bad:
-        fail(f"{name}: {bad} elements outside {K1_RTOL:g} (|want| + mag)")
-    if rel_l2 > K1_REL_L2:
-        fail(f"{name}: relative L2 error {rel_l2:.3e} > {K1_REL_L2:g}")
+        fail(f"{name}: {bad} elements outside {ATTN_RTOL:g} (|want| + mag)")
+    if rel_l2 > ATTN_REL_L2:
+        fail(f"{name}: relative L2 error {rel_l2:.3e} > {ATTN_REL_L2:g}")
     return max_err
 
 
@@ -259,9 +296,140 @@ def k2_phase(torch, V, patch_nums):
                 library_ms=None)
 
 
+def _bwd_mags(torch, q, k, v, mask, out, lse, do, scale):
+    """The magnitudes K4's limits scale with: (scale |dS| |K|, scale |dS|^T
+    |q|, |P|^T |dO|), from the plain version's fp32 P and dS."""
+    from controlvar_tpu_torch.ops.attention import _scores
+
+    p = torch.exp(_scores(q, k, mask, scale) - lse[..., None])
+    d = (do.float() * out.float()).sum(-1, keepdim=True)
+    ds = (p * (do.float() @ v.float().transpose(-1, -2) - d)).abs()
+    return (scale * ds @ k.float().abs(), scale * ds.transpose(-1, -2) @ q.float().abs(),
+            p.transpose(-1, -2) @ do.float().abs())
+
+
+def flash_phase(torch, cfg):
+    """K3 and K4 vs their plain versions at the d16 training shape and at a
+    small ragged one; times at the training shape. Returns the two
+    kernels-line entries."""
+    import torch.nn.functional as F
+
+    from controlvar_tpu_torch.models.masks import attn_mask_for_config
+    from controlvar_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain, tile_flags)
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dev, bf, hd, scale = "cuda", torch.bfloat16, cfg.head_dim, cfg.attn_scale
+
+    def inputs(B, H, L, strided):
+        """q (std 4: scores of std ~1 after the 1/32 scale), k, v and dO.
+        strided: q, k, v are the (B, H, L, hd) views of one (B, L, 3, H, hd)
+        tensor and dO a transposed (B, L, H, hd) one, as the training path's
+        fused QKV and its output projection give them."""
+        if not strided:
+            rand = lambda std: (std * torch.randn(B, H, L, hd, generator=g, device=dev)).to(bf)
+            return rand(4.0), rand(1.0), rand(1.0), rand(1.0)
+        qkv = torch.randn(B, L, 3, H, hd, generator=g, device=dev)
+        qkv[:, :, 0] *= 4.0
+        q, k, v = qkv.to(bf).permute(2, 0, 3, 1, 4)
+        do = torch.randn(B, L, H, hd, generator=g, device=dev).to(bf).transpose(1, 2)
+        return q, k, v, do
+
+    train_mask = torch.from_numpy(attn_mask_for_config(cfg)).to(dev)
+    cases = [("d16 train (8, 16, 1360, 64), block-causal, strided", 8, cfg.num_heads,
+              train_mask, True),
+             ("ragged (2, 3, 100, 64), causal", 2, 3,
+              torch.ones(100, 100, dtype=torch.bool, device=dev).tril(), False)]
+    errs3, errs4 = [], []
+    for name, B, H, mask, strided in cases:
+        q, k, v, do = inputs(B, H, mask.shape[0], strided)
+        out, lse = flash_attention(q, k, v, mask, scale)
+        want, want_lse = flash_attention_plain(q, k, v, mask, scale)
+        mag = flash_attention_plain(q, k, v.abs(), mask, scale)[0]
+        errs3.append(check_close(f"K3 {name}: out", out, want, mag))
+        lse_err = float((lse - want_lse).abs().max())
+        print(f"K3 {name}: lse max_abs_err={lse_err:.3e}")
+        if not lse_err <= K3_LSE_ATOL:
+            fail(f"K3 {name}: lse error {lse_err:.3e} > {K3_LSE_ATOL:g}")
+        # K4 from the plain forward's out and lse, so only K4 differs
+        got = flash_attention_bwd(q, k, v, mask, want, want_lse, do, scale)
+        ref = flash_attention_bwd_plain(q, k, v, mask, want, want_lse, do, scale)
+        mags = _bwd_mags(torch, q, k, v, mask, want, want_lse, do, scale)
+        for gname, a, b, m in zip(("dq", "dk", "dv"), got, ref, mags):
+            errs4.append(check_close(f"K4 {name}: {gname}", a, b, m,
+                                     2.0 ** -16 * float(m.max())))
+        del mags
+
+    # times at the training path's shapes, strides and precomputed flags
+    B, H, L = 8, cfg.num_heads, cfg.seq_len
+    q, k, v, do = inputs(B, H, L, True)
+    flags = tile_flags(train_mask)
+    out, lse = flash_attention(q, k, v, train_mask, scale, flags)
+    ms3 = cuda_ms(lambda: flash_attention(q, k, v, train_mask, scale, flags), 20)
+    plain3 = cuda_ms(lambda: flash_attention_plain(q, k, v, train_mask, scale), 3)
+    lib3 = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=train_mask,
+                                                          scale=scale), 20)
+    ms4 = cuda_ms(lambda: flash_attention_bwd(q, k, v, train_mask, out, lse, do, scale,
+                                              flags), 20)
+    plain4 = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, train_mask, out, lse, do,
+                                                       scale), 3)
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=train_mask, scale=scale)
+    lib4 = cuda_ms(lambda: torch.autograd.grad(o_lib, (qq, kk, vv), do, retain_graph=True), 20)
+    n = B * H * L * hd
+    # the work the function needs: the mask's unmasked scores only (61.9% of
+    # L x L), 2 matmul FLOP per score and hd for each product, 2 products in
+    # the forward (QK^T, PV) and 5 in the backward (S, dP, dV, dQ, dK)
+    per_score = B * H * hd * int(train_mask.sum())
+    b3 = bound_ms(2 * 4 * n + 4 * B * H * L + L * L, 4 * per_score, PEAK_BF16_FLOPS)
+    b4 = bound_ms(2 * 8 * n + 4 * B * H * L + L * L, 10 * per_score, PEAK_BF16_FLOPS)
+    print(f"K3 d16 train shape: kernel {ms3:.4f} ms, plain {plain3:.4f} ms, "
+          f"sdpa {lib3:.4f} ms, bound {b3[0]:.4f} ms ({b3[1]})")
+    print(f"K4 d16 train shape: kernel {ms4:.4f} ms, plain {plain4:.4f} ms, "
+          f"sdpa backward {lib4:.4f} ms, bound {b4[0]:.4f} ms ({b4[1]})")
+    return (dict(name="flash_attention", route="cuda",
+                 source="controlvar_tpu_torch/csrc/flash_attention.cu",
+                 replaces="controlvar_tpu/ops/attention.py:99", max_abs_err=max(errs3),
+                 ms=ms3, plain_ms=plain3, bound_ms=b3[0], bound_by=b3[1], library_ms=lib3),
+            dict(name="flash_attention_bwd", route="cuda",
+                 source="controlvar_tpu_torch/csrc/flash_attention.cu",
+                 replaces="controlvar_tpu/ops/attention.py:1085", max_abs_err=max(errs4),
+                 ms=ms4, plain_ms=plain4, bound_ms=b4[0], bound_by=b4[1], library_ms=lib4))
+
+
+def _tiny_train(torch, device, dtype):
+    """One pre-tokenized train step of a tiny config (hd = 64, L = 42) from
+    fixed weights and ids; returns (loss, grad_norm, flattened gradients)."""
+    from controlvar_tpu_torch.config import ControlVARConfig, OptimConfig, VQVAEConfig
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.train.param_groups import named_leaves
+    from controlvar_tpu_torch.train.train_step import ControlVARTrainStep, init_train_state
+
+    cfg = ControlVARConfig(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4),
+                           vocab_size=128, cvae=32, num_classes=8, multi_cond=True,
+                           cond_drop_rate=0.0)
+    vq_cfg = VQVAEConfig(ch=32, patch_nums=(1, 2, 4), vocab_size=128)
+    model, vqvae = ControlVARModel(cfg, device=device), VQVAE(vq_cfg, device=device)
+    step = ControlVARTrainStep(model, vqvae, OptimConfig(), max_steps=100, warmup_steps=2,
+                               device=device)
+    step.compute_dtype = dtype
+    state = init_train_state(model.init_params(1), OptimConfig())
+    g = torch.Generator().manual_seed(3)
+    ids = lambda: [torch.randint(0, 128, (4, p * p), generator=g) for p in cfg.patch_nums]
+    batch = {"ctrl_ids": ids(), "img_ids": ids(), "cls": torch.randint(0, 8, (4,), generator=g),
+             "type": torch.randint(0, 4, (4,), generator=g)}
+    state, aux = step.step(state, vqvae.init_params(0), batch, from_tokens=True)
+    grads = {name: leaf.grad.flatten().double().cpu()
+             for name, leaf in named_leaves(state.params)}
+    return float(aux["loss"]), float(aux["grad_norm"]), grads
+
+
 def reference_phase(torch):
     """Small inputs against the CPU: fp32 tokenizer ids bit-equal; one bf16
-    decode step through K1 close to the fp32 plain path."""
+    decode step through K1 close to the fp32 plain path; one bf16 train step
+    through K3/K4 close to the fp32 CPU step."""
     from controlvar_tpu_torch.config import ControlVARConfig, VQVAEConfig
     from controlvar_tpu_torch.device import tree_to
     from controlvar_tpu_torch.models import transformer as tfm
@@ -298,6 +466,109 @@ def reference_phase(torch):
           f"relative error {rel:.3e}")
     if rel > 2e-2:  # bf16 residual stream: ~3 significant digits per op
         fail(f"reference: decode step relative error {rel:.3e} > 2e-2")
+
+    from controlvar_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    loss_c, norm_c, grad_c = _tiny_train(torch, "cpu", torch.float32)
+    loss_g, norm_g, grad_g = _tiny_train(torch, "cuda", torch.bfloat16)
+    counts = (flash_attention.launches, flash_attention_bwd.launches)
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    cosine = lambda a, b: float(a @ b / (a.norm() * b.norm()))
+    cos = cosine(torch.cat(list(grad_g.values())), torch.cat(list(grad_c.values())))
+    leaf_cos = {name: cosine(grad_g[name], grad_c[name])
+                for name in grad_c if name.startswith("blocks/")}
+    worst = min(leaf_cos, key=leaf_cos.get)
+    print(f"reference: bf16 GPU train step vs fp32 CPU: loss {loss_g:.6f} vs {loss_c:.6f} "
+          f"(relative {rel:.3e}), grad_norm {norm_g:.6f} vs {norm_c:.6f}, gradient "
+          f"cosine {cos:.6f}, launches K3={counts[0]} K4={counts[1]}")
+    print("reference: gradient cosine of each block leaf: " + ", ".join(
+        f"{name} {c:.6f}" for name, c in sorted(leaf_cos.items())))
+    if counts != (4, 2):  # 2 layers: forward, recompute; one backward each
+        fail(f"reference: train step launches (K3, K4) = {counts}, expected (4, 2)")
+    if not rel <= TRAIN_LOSS_RTOL:
+        fail(f"reference: train loss relative difference {rel:.3e} > {TRAIN_LOSS_RTOL:g}")
+    if not cos >= TRAIN_GRAD_COS:
+        fail(f"reference: gradient cosine {cos:.6f} < {TRAIN_GRAD_COS}")
+    if not leaf_cos[worst] >= TRAIN_BLOCK_LEAF_COS:
+        fail(f"reference: gradient cosine of {worst} {leaf_cos[worst]:.6f} < "
+             f"{TRAIN_BLOCK_LEAF_COS}")
+
+
+def train_path_phase(torch, cfg, profile: bool):
+    """The training path at full width: returns (K3, K4) launches of a step."""
+    import math
+
+    from controlvar_tpu_torch.config import OptimConfig, VQVAEConfig
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+    from controlvar_tpu_torch.train.train_step import ControlVARTrainStep, init_train_state
+
+    B, n_timed = 8, 5
+    t0 = time.time()
+    model, vqvae = ControlVARModel(cfg), VQVAE(VQVAEConfig())
+    optim = OptimConfig(total_batch_size=B)
+    stepper = ControlVARTrainStep(model, vqvae, optim, max_steps=1000, warmup_steps=10)
+    state = init_train_state(model.init_params(0), optim)
+    vq_params = vqvae.init_params(1)
+    g = torch.Generator().manual_seed(5)
+    batch = {"image": (torch.rand(B, 256, 256, 3, generator=g) * 2 - 1).cuda(),
+             "mask": (torch.rand(B, 256, 256, 3, generator=g) * 2 - 1).cuda(),
+             "cls": torch.randint(0, cfg.num_classes, (B,), generator=g).cuda(),
+             "type": torch.randint(0, 4, (B,), generator=g).cuda()}
+    n_params = sum(t.numel() for t in state.optimizer.param_groups[0]["params"]) + sum(
+        t.numel() for t in state.optimizer.param_groups[1]["params"])
+    head0 = state.params["head"]["kernel"].detach().clone()
+    gen = torch.Generator().manual_seed(6)
+    expect = (2 * cfg.depth, cfg.depth)  # forward + recompute; one backward per layer
+    print(f"train path: d16 params ({n_params / 1e6:.1f} M) and ch-160 VQVAE built in "
+          f"{time.time() - t0:.1f} s")
+
+    def one_step():
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, aux = stepper.step(state, vq_params, batch, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = (flash_attention.launches, flash_attention_bwd.launches)
+        if counts != expect:
+            fail(f"train path: launches (K3, K4) = {counts}, expected {expect}")
+        loss, norm = float(aux["loss"]), float(aux["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            fail(f"train path: loss {loss} grad_norm {norm}")
+        return dt, loss, norm, aux, counts
+
+    dt, loss, norm, aux, counts = one_step()
+    print(f"train path: warm-up step {dt:.3f} s, loss {loss:.5f} (ln V = "
+          f"{math.log(cfg.vocab_size):.5f}), grad_norm {norm:.5f}, lr {aux['lr']:.3e}")
+    if abs(loss - math.log(cfg.vocab_size)) > 0.5:
+        fail(f"train path: step-0 loss {loss:.4f} is not near ln V")
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(n_timed):
+        dt, loss, norm, aux, counts = one_step()
+        times.append(dt)
+        losses.append(loss)
+    if float((state.params["head"]["kernel"].detach() - head0).abs().max()) == 0.0:
+        fail("train path: the params did not change")
+    s_step = sum(times) / n_timed
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train path: {n_timed} timed steps {', '.join(f'{t:.4f}' for t in times)} s; "
+          f"mean {s_step:.4f} s/step = {B / s_step:.3f} img/s; peak memory {peak:.2f} GiB; "
+          f"losses {', '.join(f'{x:.5f}' for x in losses)}; launches per step "
+          f"K3={counts[0]} K4={counts[1]}")
+    if profile:
+        busy, wall, by_cat = device_profile(torch, lambda: one_step()[0], "train")
+        # the profiler slows the host, so the profiled step's idle share
+        # overstates an unprofiled step's; both are printed
+        print(f"train breakdown: profiled step {wall:.2f} ms, device busy {busy:.2f} ms, "
+              f"idle share {1 - busy / wall:.4f} of the profiled step, "
+              f"{1 - busy / (s_step * 1e3):.4f} of the mean timed step")
+        for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+            print(f"train breakdown: {cat}: {ms:.2f} ms")
+    return counts, s_step
 
 
 def main_path_phase(torch, cfg, profile: bool):
@@ -349,42 +620,33 @@ def main_path_phase(torch, cfg, profile: bool):
                                                       torch.Generator().manual_seed(12),
                                                       imgs, decode_img=False),
                   lambda: harness._tokenize(vq_params, imgs),
-                  lambda fh: vqvae.fhat_to_img(vq_params, fh, harness.compute_dtype))
+                  lambda fh: vqvae.fhat_to_img(vq_params, fh, harness.compute_dtype), dt)
     return counts, B / dt
 
 
 # kernel-name substrings of each device-time category, tested in this order
 CATEGORIES = (("K1 decode attention", ("decode_attention_kernel",)),
               ("K2 sampling", ("sample_bisect_kernel",)),
-              ("convolution", ("fprop", "conv", "cudnn", "nchwToNhwc", "nhwcToNchw")),
+              ("K3 flash attention", ("flash_fwd_kernel",)),
+              ("K4 flash attention backward", ("flash_bwd_",)),
+              ("convolution", ("fprop", "dgrad", "wgrad", "conv", "cudnn", "nchwToNhwc",
+                               "nhwcToNchw")),
               ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
               ("copy and cast", ("copy", "Memcpy", "Memset")),
               ("elementwise", ("elementwise",)),
               ("reduction and norm", ("reduce", "Moments", "norm", "softmax")))
 
 
-def breakdown(torch, call, sample_only, tokenize, decode):
-    """Where a main-path call's time goes: host-clock phases, then one
-    profiled call's device busy time, idle share and kernel time by
-    category. The table goes to chiprun_out/chip_smoke_profile.txt."""
+def device_profile(torch, fn, tag):
+    """One profiled call of fn (which returns its own host-clock seconds):
+    (device busy ms, wall ms, {category: device ms}). The union of device
+    op spans is the busy time. Tables by device time and by host time go to
+    chiprun_out/chip_smoke_profile_<tag>.txt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3
-
-    _, t_tok = timed(tokenize)
-    (fh_c, fh_i), t_gen = timed(sample_only)
-    _, t_dec = timed(lambda: decode(torch.cat([fh_c, fh_i])))
-    print(f"breakdown: tokenize {t_tok:.2f} ms; tokenize + 10 scales {t_gen:.2f} ms "
-          f"(scales alone {t_gen - t_tok:.2f} ms); decode both canvases {t_dec:.2f} ms")
-
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        dt, _ = call(12)
+        wall = fn() * 1e3
     spans, by_cat = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or e.name == "Command Buffer Full":
@@ -397,15 +659,38 @@ def breakdown(torch, call, sample_only, tokenize, decode):
         if e > end:
             busy += e - max(s, end)
             end = e
-    busy /= 1e3
-    print(f"breakdown: profiled call {dt * 1e3:.2f} ms, device busy {busy:.2f} ms, "
-          f"idle share {1 - busy / (dt * 1e3):.4f}, {len(spans)} device ops")
+    avg = prof.key_averages()
+    table = (avg.table(sort_by="cuda_time_total", row_limit=40) + "\n"
+             + avg.table(sort_by="self_cpu_time_total", row_limit=40))
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_profile_{tag}.txt"), "w") as f:
+        f.write(table)
+    print(f"{tag} breakdown: {len(spans)} device ops")
+    return busy / 1e3, wall, by_cat
+
+
+def breakdown(torch, call, sample_only, tokenize, decode, dt_timed):
+    """Where a serving call's time goes: host-clock phases, then one
+    profiled call's device busy time, idle share and kernel time by
+    category."""
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    _, t_tok = timed(tokenize)
+    (fh_c, fh_i), t_gen = timed(sample_only)
+    _, t_dec = timed(lambda: decode(torch.cat([fh_c, fh_i])))
+    print(f"breakdown: tokenize {t_tok:.2f} ms; tokenize + 10 scales {t_gen:.2f} ms "
+          f"(scales alone {t_gen - t_tok:.2f} ms); decode both canvases {t_dec:.2f} ms")
+    busy, wall, by_cat = device_profile(torch, lambda: call(12)[0], "serve")
+    print(f"breakdown: profiled call {wall:.2f} ms, device busy {busy:.2f} ms, "
+          f"idle share {1 - busy / wall:.4f} of the profiled call, "
+          f"{1 - busy / (dt_timed * 1e3):.4f} of the timed call")
     for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"breakdown: {cat}: {ms:.2f} ms")
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_profile.txt"), "w") as f:
-        f.write(table)
 
 
 def main() -> None:
@@ -431,29 +716,35 @@ def main() -> None:
 
     phase("build")
     t = time.time()
-    reports = _build.build(["decode_attention", "sample_bisect"])
+    reports = _build.build(["decode_attention", "sample_bisect", "flash_attention"])
     print(f"built {sorted(reports) or 'nothing (cached)'} in {time.time() - t:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
 
+    profile = "--profile" in sys.argv[1:]
     cfg = control_var_config_from_depth(16, multi_cond=True)
     phase("K1 decode attention vs plain")
     k1 = k1_phase(torch, cfg)
     phase("K2 bisection sampling vs plain")
     k2 = k2_phase(torch, cfg.vocab_size, cfg.patch_nums)
+    phase("K3 flash attention and K4 backward vs plain")
+    k3, k4 = flash_phase(torch, cfg)
     phase("small-input reference")
     reference_phase(torch)
-    phase("main path: ControlVAR-d16 control-conditioned generation, B=16")
-    counts, img_s = main_path_phase(torch, cfg, "--profile" in sys.argv[1:])
-    k1["launches"], k2["launches"] = counts
+    phase("training path: ControlVAR-d16 train step, B=8")
+    (k3["launches"], k4["launches"]), s_step = train_path_phase(torch, cfg, profile)
+    torch.cuda.empty_cache()
+    phase("serving path: ControlVAR-d16 control-conditioned generation, B=16")
+    (k1["launches"], k2["launches"]), img_s = main_path_phase(torch, cfg, profile)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(f"main path: {img_s:.3f} img/s on")
+    print(f"training path: {s_step:.4f} s/step ({8 / s_step:.3f} img/s); serving path: "
+          f"{img_s:.3f} img/s on")
     print(smi)
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in (k1, k2)]}))
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in (k1, k2, k3, k4)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

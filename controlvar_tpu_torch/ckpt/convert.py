@@ -1,10 +1,11 @@
-"""Convert JAX-package parameter trees into the port's parameters.
+"""Convert parameter trees between the JAX package and the port.
 
 The input is a nested tree of dicts and lists of numpy arrays, as
 `jax.tree_util.tree_map(np.asarray, params)` gives for a ControlVAR model or
 a VQVAE of the JAX package. Dense kernels keep their (in, out) layout (the
 port multiplies `x @ W` as JAX does); conv kernels go from HWIO to PyTorch's
-OIHW. Nothing here imports JAX.
+OIHW. `to_jax_params` is the reverse for ControlVAR trees, for comparing
+the port's parameters with the JAX package's. Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -42,3 +43,21 @@ def from_jax_params(tree, cfg, device: DeviceLike = None):
             raise ValueError("not a ControlVAR tree of this depth")
         return _convert(tree, False, device)
     raise TypeError(f"unsupported config {type(cfg).__name__}")
+
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_numpy(v) for v in tree]
+    return tree.detach().cpu().numpy()
+
+
+def to_jax_params(params, cfg):
+    """The port's ControlVAR params -> a numpy tree in the JAX package's
+    layout (the reverse of `from_jax_params`; dense kernels keep their
+    layout)."""
+    if not isinstance(cfg, ControlVARConfig):
+        raise TypeError(f"unsupported config {type(cfg).__name__}")
+    return _to_numpy(params)

@@ -8,7 +8,7 @@ built here describes the same model as its JAX counterpart.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 PATCH_NUMS_DEFAULT: Tuple[int, ...] = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
 
@@ -160,6 +160,33 @@ def control_var_config_from_depth(
     kw["cos_attn"] = overrides.pop("cos_attn", depth == 30)
     kw.update(overrides)
     return ControlVARConfig(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """AdamW with per-step lr/wd annealing."""
+
+    base_lr: float = 1e-4         # scaled by total_batch/512
+    total_batch_size: int = 64
+    weight_decay: float = 0.05
+    weight_decay_end: Optional[float] = None  # anneal target; None = constant
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 2.0
+    warmup_epochs: float = 1.0    # wp
+    warmup_init_frac: float = 0.005  # wp0
+    final_lr_frac: float = 0.015  # wpe-style final fraction
+    schedule: str = "lin0"        # {cos, lin, lin0, lin00, linT, exp}
+    epochs: int = 30
+    grad_accum: int = 1           # microbatches per optimizer step
+
+    @property
+    def lr(self) -> float:
+        return self.base_lr * self.total_batch_size / 512
+
+    @property
+    def wd_end(self) -> float:
+        return self.weight_decay if self.weight_decay_end is None else self.weight_decay_end
 
 
 @dataclasses.dataclass(frozen=True)

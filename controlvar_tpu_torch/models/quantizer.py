@@ -125,6 +125,28 @@ class MultiScaleQuantizer:
                 all_ids.append(idx.reshape(B, pn * pn))
         return all_ids
 
+    # ---- teacher-forcing inputs for training -----------------------------------
+
+    def ids_to_var_input(self, params: Params,
+                         ms_ids: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Ground-truth per-scale ids -> teacher-forcing features: for each
+        scale k in [1, SN), the f_hat accumulated over scales < k,
+        area-downsampled to (pn_k, pn_k) and flattened to (B, pn_k^2, Cvae)."""
+        pns = self.cfg.patch_nums
+        B = ms_ids[0].shape[0]
+        H = W = pns[-1]
+        C = self.cfg.z_channels
+        f_hat = torch.zeros(B, H, W, C, device=ms_ids[0].device)
+        out: List[torch.Tensor] = []
+        with no_tf32():
+            for si in range(len(pns) - 1):
+                pn, pn_next = pns[si], pns[si + 1]
+                h = resize_bicubic(self.embed(params, ms_ids[si].reshape(B, pn, pn)), H, W)
+                f_hat = f_hat + self._phi(params, si, h)
+                nxt = resize_area(f_hat, pn_next, pn_next)
+                out.append(nxt.reshape(B, pn_next * pn_next, C))
+        return out
+
     # ---- AR decode-step residual update --------------------------------------
 
     def next_ar_input(self, params: Params, si: int, f_hat: torch.Tensor,

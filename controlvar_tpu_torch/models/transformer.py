@@ -1,10 +1,16 @@
-"""AdaLN self-attention transformer, decode subset.
+"""AdaLN self-attention transformer: the training forward and KV-cached decode.
 
 One block type: pre-norm (no affine) with per-condition (gamma1, gamma2,
 scale1, scale2, shift1, shift2) modulation, fused QKV with a zero k bias,
 1/(sqrt(hd)*tau) scaling or cosine attention, GELU(tanh) MLP. The residual
 stream runs in the compute dtype (bf16 on the GPU); LayerNorm statistics,
 AdaLN modulation and softmax run in fp32.
+
+The training forward (`blocks_forward`) runs the layers as a Python loop
+over views of the stacked params, with attention through `flash_mha`
+(kernels K3 forward and K4 backward on the GPU), optional per-sample drop
+path, and, when training, per-layer recompute (`torch.utils.checkpoint`,
+the JAX package's default `full` remat policy).
 
 Decode keeps a preallocated (depth, B, H, L_max, hd) K/V cache per stream,
 written in place: each layer-step writes its fresh rows [pos, pos + l) and
@@ -23,9 +29,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from controlvar_tpu_torch.config import VARConfig
-from controlvar_tpu_torch.ops.attention import decode_attention
+from controlvar_tpu_torch.ops.attention import decode_attention, flash_mha
 
 Params = Dict
 
@@ -122,10 +129,11 @@ def _ada_all_layers(bp: Params, cond_act: torch.Tensor, cfg: VARConfig) -> torch
     return ada.reshape(cfg.depth, -1, 6, cfg.embed_dim)
 
 
-def _decode_block_body(lp: Params, h: torch.Tensor, ada: torch.Tensor,
-                       cfg: VARConfig, attn_fn) -> torch.Tensor:
-    """Per-layer decode: AdaLN-modulated pre-norm -> fused QKV -> attention
-    -> gamma-gated residual -> modulated FFN residual."""
+def _block_body(lp: Params, h: torch.Tensor, ada: torch.Tensor, cfg: VARConfig,
+                attn_fn, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One layer: AdaLN-modulated pre-norm -> fused QKV -> attention ->
+    gamma-gated residual -> modulated FFN residual. keep: optional (2, B)
+    drop-path factors (mask / keep rate) of the attention and FFN branches."""
     g1, g2, s1, s2, sh1, sh2 = (a.reshape(-1, 1, cfg.embed_dim)
                                 for a in ada.unbind(dim=1))
     hn = layer_norm(h, cfg.norm_eps)
@@ -134,11 +142,81 @@ def _decode_block_body(lp: Params, h: torch.Tensor, ada: torch.Tensor,
     B, H, Lq, hd = o.shape
     o = o.transpose(1, 2).reshape(B, Lq, H * hd)
     o = o @ lp["proj"]["kernel"].to(o.dtype) + lp["proj"]["bias"].to(o.dtype)
-    h = h + (o.float() * g1).to(h.dtype)
+    o = (o.float() * g1).to(h.dtype)
+    if keep is not None:
+        o = o * keep[0].reshape(B, 1, 1)
+    h = h + o
     hn = layer_norm(h, cfg.norm_eps)
     hn = (hn.float() * (s2 + 1.0) + sh2).to(h.dtype)
-    f = _ffn(lp, hn)
-    return h + (f.float() * g2).to(h.dtype)
+    f = (_ffn(lp, hn).float() * g2).to(h.dtype)
+    if keep is not None:
+        f = f * keep[1].reshape(B, 1, 1)
+    return h + f
+
+
+def _drop_path(generator: torch.Generator, rates, batch: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    """(depth, 2, B) per-sample stochastic-depth factors mask / keep, in
+    `dtype`, for the attention and FFN branch of every layer: mask ~
+    Bernoulli(keep = 1 - rate) drawn as uniform < keep, as jax.random.
+    bernoulli does. Drawn for all layers before the layer loop, as JAX splits
+    its keys before the scan: torch.utils.checkpoint does not restore an
+    explicit generator, so a draw inside a recomputed layer would differ."""
+    keep = 1.0 - torch.as_tensor(rates, dtype=torch.float32)
+    u = torch.rand(len(keep), 2, batch, generator=generator)
+    mask = (u < keep[:, None, None]).to(dtype)
+    return mask / keep.to(dtype)[:, None, None]
+
+
+def _unbind_layers(bp: Params, depth: int):
+    """Per-layer views of the stacked block params, made with one unbind per
+    leaf, so the backward stacks each leaf's gradient once instead of
+    scattering every layer's into a zeroed full-depth copy. ada_lin is left
+    out: all layers' modulations come from one batched matmul."""
+    def unbind(tree):
+        if isinstance(tree, dict):
+            return {k: unbind(v) for k, v in tree.items() if k != "ada_lin"}
+        return tree.unbind(0)
+
+    def pick(tree, li):
+        return {k: (pick(v, li) if isinstance(v, dict) else v[li]) for k, v in tree.items()}
+
+    views = unbind(bp)
+    return [pick(views, li) for li in range(depth)]
+
+
+def blocks_forward(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfig,
+                   mask: torch.Tensor, *, flags: Optional[torch.Tensor] = None,
+                   train: bool = False,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Full-sequence forward through all blocks, attention through
+    `flash_mha` (K3/K4 on the GPU).
+
+    x: (B, L, C) residual stream (bf16 on the GPU); cond: (B, C) fp32;
+    mask: (L, L) bool on x's device, flags its `tile_flags`. With train and
+    a generator, drop path is drawn from the generator. With train, each
+    layer is recomputed in the backward, so only the per-layer residual
+    stream is kept (the JAX package's default policy `full`).
+    """
+    if cfg.shared_aln:
+        raise NotImplementedError("shared_aln is not ported yet")
+    D, B = cfg.depth, x.shape[0]
+    ada_all = _ada_all_layers(bp, F.silu(cond.float()), cfg)
+    keep = None
+    if train and generator is not None and cfg.drop_path_rate > 0:
+        rates = np.linspace(0.0, cfg.drop_path_rate, D, dtype=np.float32)
+        keep = _drop_path(generator, rates, B, x.dtype).to(x.device)
+    scale = 1.0 if cfg.cos_attn else cfg.attn_scale
+    attn_fn = lambda q, k, v: flash_mha(q, k, v, mask, scale, flags)
+    for li, lp in enumerate(_unbind_layers(bp, D)):
+        k_li = None if keep is None else keep[li]
+        if train:
+            # the body draws no random numbers: no RNG state to restore
+            x = checkpoint(_block_body, lp, x, ada_all[li], cfg, attn_fn, k_li,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block_body(lp, x, ada_all[li], cfg, attn_fn, k_li)
+    return x
 
 
 def init_kv_cache(cfg: VARConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -169,8 +247,18 @@ def blocks_decode(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfi
             cache_v[li, :, :, pos:cur] = v
             return decode_attention(q, cache_k, cache_v, li, cur, scale, mask_slice)
 
-        x = _decode_block_body(_layer(bp, li), x, ada_all[li], cfg, attn_fn)
+        x = _block_body(_layer(bp, li), x, ada_all[li], cfg, attn_fn)
     return x, cache_k, cache_v
+
+
+def head_logits(p: Params, x: torch.Tensor, cond: torch.Tensor,
+                cfg: VARConfig) -> torch.Tensor:
+    """AdaLN-modulated LayerNorm, then the vocab projection, in fp32."""
+    ada = F.silu(cond.float()) @ p["head_nm"]["ada_lin"]["kernel"] + p["head_nm"]["ada_lin"]["bias"]
+    scale, shift = ada.reshape(-1, 2, cfg.embed_dim).split(1, dim=1)
+    h = layer_norm(x.float(), cfg.norm_eps)
+    h = h * (scale + 1.0) + shift
+    return h @ p["head"]["kernel"] + p["head"]["bias"]
 
 
 def head_logits_cfg(p: Params, x: torch.Tensor, cond: torch.Tensor,

@@ -55,6 +55,11 @@ class VQVAE:
         f = self.encode_f(params, img, compute_dtype)
         return self.quantizer.encode_ids(params["quantize"], f, patch_nums)
 
+    def ids_to_var_input(self, params: Params,
+                         ms_ids: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Teacher-forcing features of per-scale ids (see the quantizer)."""
+        return self.quantizer.ids_to_var_input(params["quantize"], ms_ids)
+
     def decode_raw(self, params: Params, f_hat: torch.Tensor,
                    compute_dtype=torch.float32) -> torch.Tensor:
         """post_quant_conv + decoder, unclamped, fp32 NHWC."""

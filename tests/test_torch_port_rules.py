@@ -30,7 +30,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_port_has_sources_and_kernels():
     assert len(PORT_FILES) > 10
     assert sorted(p.name for p in (ROOT / "controlvar_tpu_torch" / "csrc").glob("*.cu")) == [
-        "decode_attention.cu", "sample_bisect.cu"]
+        "decode_attention.cu", "flash_attention.cu", "sample_bisect.cu"]
 
 
 @pytest.fixture
@@ -79,3 +79,8 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
     csrc = ROOT / "controlvar_tpu_torch" / "csrc"
     assert "ops/attention.py:flash_decode_paired" in (csrc / "decode_attention.cu").read_text()
     assert "ops/sample_kernel.py:" in (csrc / "sample_bisect.cu").read_text()
+    flash = (csrc / "flash_attention.cu").read_text()
+    for name in ("ops/attention.py:flash_attention", "_flash_kernel",
+                 "ops/attention.py:flash_attention_bwd", "_flash_bwd_dq_kernel",
+                 "_flash_bwd_dkv_kernel"):
+        assert name in flash
