@@ -18,26 +18,44 @@ Run from the root of a checkout. Phases, each fatal on failure:
      with q, k, v and dO strided as the training path gives them, and at a
      small ragged shape under a causal mask, with their times, the plain
      versions' and SDPA's (forward, and its autograd backward);
-  6. small-input reference: fp32 tokenizer ids on the GPU equal the CPU's;
-     one bf16 decode step through K1 agrees with the fp32 CPU path; one
+  6. K5 prefix decode and K6 in-place decode vs their plain versions at the
+     d24 joint path's final scale (16 CFG rows, 24 heads, l = 512) over the
+     full prefix (pos = 848) and the kv_window=2 one (pos = 540), and at a
+     small ragged masked shape; K6 at the final scale and at pos == 0, with a
+     check that it changed exactly rows [pos, pos + l) of layer li; all on
+     the strided views the decode paths give them; with their times, the
+     plain versions' and SDPA's over the concatenated K/V;
+  7. small-input reference: fp32 tokenizer ids on the GPU equal the CPU's;
+     one bf16 decode step through K1, one segmented-cache step through K5
+     and one in-place step through K6 agree with the fp32 CPU path; one
      tiny-config bf16 train step through K3/K4 agrees with the fp32 CPU step
      (loss, and the direction of the whole gradient and of each block leaf's);
-  7. the training path at full width: ControlVAR-d16 (multi_cond), the
+  8. the training path at full width: ControlVAR-d16 (multi_cond), the
      ch-160 VQVAE frozen inside the step, B=8 seeded 256x256 image/mask
      batches, AdamW (OptimConfig(total_batch_size=8)), one warm-up step and
      five timed steps, with K3/K4 launch counts read around each step;
-  8. the serving path at full width: ControlVAR-d16 (multi_cond) and the
+  9. the serving path at full width: ControlVAR-d16 (multi_cond) and the
      ch-160 VQVAE, random weights from a seed,
      SamplingHarness.control_conditioned on 16 seeded 256x256 control images
      (tokenize, 10 scales with 4-way CFG, top-k 900, top-p 0.96, decode both
      canvases), one warm-up call and one timed call, with K1/K2 launch
-     counts read around each call.
-Prints the card, a `kernels` JSON line and, last, {"ok": true, "device": ...}.
+     counts read around each call;
+ 10. the joint path at full width: ControlVAR-d24 (multi_cond) and the
+     ch-160 VQVAE, random weights from a seed, SamplingHarness.joint on B=8
+     (labels arange(8), cond types i % 4; 10 scales with 2-way CFG 4.0,
+     top-k 900, top-p 0.96, decode both canvases) in three cache modes:
+     stacked (K1), kv_window=2 (K1 at scale 0, K5 after) and stacked with
+     inplace_decode (K6); one warm-up and one timed call each, then four
+     rounds that call every mode once in a rotated order (the median of
+     each mode's four calls), with the launch counts of K1, K2, K5 and K6
+     read around every call.
+Prints the card, a `kernels` JSON line (K1-K6) and, last,
+{"ok": true, "device": ...}.
 It exits non-zero, printing no result, without CUDA or outside a checkout.
---profile adds, for each path, the device busy time, the idle share and
-kernel time by category from torch.profiler over one more step or call
-(and host-clock phases of the serving call); the kernel tables go to
-chiprun_out/chip_smoke_profile_{train,serve}.txt.
+--profile adds, for each path (and each joint cache mode), the device busy
+time, the idle share and kernel time by category from torch.profiler over
+one more step or call (and host-clock phases of the serving call); the
+kernel tables go to chiprun_out/chip_smoke_profile_<path>.txt.
 """
 from __future__ import annotations
 
@@ -51,14 +69,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
-# The attention kernels' limits (K1, K3 and K4). Per element, |got - want|
-# <= 2^-7 (|want| + mag), mag = sum_j |x_j| |y_j| over the terms of the
-# product that goes through a bf16 rounding on both sides: p.V for K1, K3
-# and K4's dv (mag = the plain version on |V|, or |P|^T |dO|), and dS.K and
-# dS^T.q for K4's dq and dk (mag = scale |dS| |K|, scale |dS|^T |q|). Both
-# sides round p (or dS) to bf16 (rel. err <= 2^-9 each) from fp32 values
-# that differ in their last bits (K1/K3 round p unnormalised, the plain
-# version normalised), which moves an output by up to 2^-8 mag where terms
+# The attention kernels' limits (K1, K3, K4, K5 and K6). Per element,
+# |got - want| <= 2^-7 (|want| + mag), mag = sum_j |x_j| |y_j| over the
+# terms of the product that goes through a bf16 rounding on both sides: p.V
+# for K1, K3, K5, K6 and K4's dv (mag = the plain version on |V|, or |P|^T
+# |dO|), and dS.K and dS^T.q for K4's dq and dk (mag = scale |dS| |K|,
+# scale |dS|^T |q|). Both sides round p (or dS) to bf16 (rel. err <= 2^-9
+# each) from fp32 values that differ in their last bits (K1/K3 round p
+# unnormalised, the plain version normalised; K5/K6 and their plain
+# versions both round p unnormalised, but relative to the running max of
+# the tiles streamed so far and to the joint max of all scores), which
+# moves an output by up to 2^-8 mag where terms
 # cancel; the bf16 output and the fp32 sums add up to ~3 * 2^-9 |want|. The
 # limit is twice that worst case. Over a whole output, ||got - want|| <=
 # 2^-6 ||want||, which a dropped or misplaced tile breaks. K4 adds a floor of
@@ -398,6 +419,120 @@ def flash_phase(torch, cfg):
                  ms=ms4, plain_ms=plain4, bound_ms=b4[0], bound_by=b4[1], library_ms=lib4))
 
 
+def prefix_phase(torch, cfg):
+    """K5 and K6 vs their plain versions at the d24 joint path's shapes and
+    a small ragged masked one; times at the final scale. Returns the two
+    kernels-line entries (K5's at the kv_window=2 shape its path runs)."""
+    import torch.nn.functional as F
+
+    from controlvar_tpu_torch.ops.attention import (
+        decode_attention_inplace, decode_attention_inplace_plain, decode_attention_prefix,
+        decode_attention_prefix_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dev, bf, hd, scale = "cuda", torch.bfloat16, cfg.head_dim, cfg.attn_scale
+    R, H = 16, cfg.num_heads          # 2 CFG branches x B = 8, 24 heads
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+
+    def fresh(B, H, l):
+        """q (std 4: scores of std ~1 after the 1/32 scale), k, v: the
+        (B, H, l, hd) views of one (B, l, 3, H, hd) tensor, as the blocks'
+        fused QKV gives them."""
+        qkv = randn(B, l, 3, H, hd)
+        qkv[:, :, 0] *= 4.0
+        return qkv.to(bf).permute(2, 0, 3, 1, 4)
+
+    def k5_case(name, q, pk, pv, kn, vn, mask=None):
+        got = decode_attention_prefix(q, pk, pv, kn, vn, scale, mask)
+        want = decode_attention_prefix_plain(q, pk, pv, kn, vn, scale, mask)
+        mag = decode_attention_prefix_plain(q, pk, pv.abs(), kn, vn.abs(), scale, mask)
+        return check_close(f"K5 {name}", got, want, mag)
+
+    def k6_case(name, q, ck, cv, kn, vn, li, pos):
+        cur = pos + q.shape[2]
+        before_k, before_v = ck.clone(), cv.clone()
+        got = decode_attention_inplace(q, ck, cv, kn, vn, li, pos, scale)
+        torch.cuda.synchronize()
+        pk, pv = before_k[li, :, :, :pos], before_v[li, :, :, :pos]
+        want = decode_attention_prefix_plain(q, pk, pv, kn, vn, scale)
+        mag = decode_attention_prefix_plain(q, pk, pv.abs(), kn, vn.abs(), scale)
+        err = check_close(f"K6 {name}", got, want, mag)
+        for cname, after, before, new in (("K", ck, before_k, kn), ("V", cv, before_v, vn)):
+            before[li, :, :, pos:cur] = new
+            if not torch.equal(after, before):
+                fail(f"K6 {name}: the {cname} cache differs outside rows [{pos}, {cur}) of "
+                     f"layer {li}, or those rows are not the fresh ones")
+        print(f"K6 {name}: the caches changed in rows [{pos}, {cur}) of layer {li} only, "
+              f"to the fresh rows")
+        return err
+
+    lo, hi = cfg.begin_ends[-1]
+    l, full_pos = hi - lo, lo
+    # kv_window=2 at the final scale: scale 0's segment and the last two
+    window_pos = cfg.scale_seg_len(0) + sum(cfg.scale_seg_len(si) for si in (-3, -2))
+    errs5, errs6 = [], []
+    # K5 on the segmented path's views: layer 1 of the concatenated kept
+    # segments, the fresh rows of layer 1 of this scale's segment
+    seg_k, seg_v = randn(2, R, H, l, hd).to(bf), randn(2, R, H, l, hd).to(bf)
+    q = fresh(R, H, l)[0]
+    k5_inputs = {}
+    for pname, pos in (("full prefix", full_pos), ("kv_window=2", window_pos)):
+        pre_k, pre_v = randn(2, R, H, pos, hd).to(bf), randn(2, R, H, pos, hd).to(bf)
+        k5_inputs[pname] = (q, pre_k[1], pre_v[1], seg_k[1], seg_v[1])
+        errs5.append(k5_case(f"d24 final scale, {pname} (pos={pos}, l={l})",
+                             *k5_inputs[pname]))
+    qs, ks, vs = fresh(2, 3, 37)
+    mask = torch.rand(37, 83 + 37, generator=g, device=dev) > 0.3
+    mask[:, 0] = True
+    errs5.append(k5_case("ragged (2, 3, 37, 64), pos=83, masked", qs,
+                         randn(2, 3, 83, hd).to(bf), randn(2, 3, 83, hd).to(bf), ks, vs, mask))
+
+    # K6 on the stacked path's views: the (depth, R, H, L, hd) caches and the
+    # fresh k, v straight from the fused QKV
+    ck, cv = (randn(2, R, H, cfg.seq_len, hd).to(bf) for _ in range(2))
+    q6, kn6, vn6 = fresh(R, H, l)
+    errs6.append(k6_case(f"d24 final scale (pos={full_pos}, l={l})", q6, ck, cv, kn6, vn6,
+                         1, full_pos))
+    q0, kn0, vn0 = fresh(R, H, cfg.scale_seg_len(0))
+    errs6.append(k6_case("d24 scale 0 (pos=0, l=2)", q0, ck, cv, kn0, vn0, 0, 0))
+
+    # times at the final scale
+    def lib_ms(q, pk, pv, kn, vn):
+        kk, vv = torch.cat([pk, kn], dim=2), torch.cat([pv, vn], dim=2)  # outside the time
+        return cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, vv, scale=scale), 20)
+
+    def bounds(pos, write):
+        n = R * H * hd
+        nbytes = 2 * (2 * n * l + 2 * n * (pos + l)) + (2 * 2 * n * l if write else 0)
+        return bound_ms(nbytes, 4 * R * H * l * (pos + l) * hd, PEAK_BF16_FLOPS)
+
+    times = {}
+    for pname, args in k5_inputs.items():
+        b_ms, b_by = bounds(args[1].shape[2], False)
+        times[pname] = (cuda_ms(lambda: decode_attention_prefix(*args, scale), 20),
+                        cuda_ms(lambda: decode_attention_prefix_plain(*args, scale), 3),
+                        lib_ms(*args), b_ms, b_by)
+        print(f"K5 d24 final scale, {pname}: kernel {times[pname][0]:.4f} ms, plain "
+              f"{times[pname][1]:.4f} ms, sdpa over the concatenated K/V "
+              f"{times[pname][2]:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    ms6 = cuda_ms(lambda: decode_attention_inplace(q6, ck, cv, kn6, vn6, 1, full_pos, scale), 20)
+    plain6 = cuda_ms(lambda: decode_attention_inplace_plain(q6, ck, cv, kn6, vn6, 1, full_pos,
+                                                            scale), 3)
+    lib6 = lib_ms(q6, ck[1, :, :, :full_pos], cv[1, :, :, :full_pos], kn6, vn6)
+    b6 = bounds(full_pos, True)
+    print(f"K6 d24 final scale: kernel {ms6:.4f} ms, plain {plain6:.4f} ms, sdpa of the "
+          f"attention alone {lib6:.4f} ms, bound {b6[0]:.4f} ms ({b6[1]})")
+    w = times["kv_window=2"]
+    return (dict(name="decode_attention_prefix", route="cuda",
+                 source="controlvar_tpu_torch/csrc/decode_prefix.cu",
+                 replaces="controlvar_tpu/ops/attention.py:667", max_abs_err=max(errs5),
+                 ms=w[0], plain_ms=w[1], bound_ms=w[3], bound_by=w[4], library_ms=w[2]),
+            dict(name="decode_attention_inplace", route="cuda",
+                 source="controlvar_tpu_torch/csrc/decode_prefix.cu",
+                 replaces="controlvar_tpu/ops/attention.py:894", max_abs_err=max(errs6),
+                 ms=ms6, plain_ms=plain6, bound_ms=b6[0], bound_by=b6[1], library_ms=lib6))
+
+
 def _tiny_train(torch, device, dtype):
     """One pre-tokenized train step of a tiny config (hd = 64, L = 42) from
     fixed weights and ids; returns (loss, grad_norm, flattened gradients)."""
@@ -449,6 +584,14 @@ def reference_phase(torch):
     cfg = ControlVARConfig(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4),
                            vocab_size=64, cvae=32, num_classes=8, multi_cond=True)
     p = ControlVARModel(cfg, device="cpu").init_params(1)["blocks"]
+    # At init the AdaLN gate columns are 1e-3 of the rest, which leaves the
+    # attention output out of y: zeroing the whole cached prefix moves y by
+    # 7e-7 (relative L2, fp32 on the CPU). With the attention gate raised by
+    # 10 and the FFN gate by 1 it moves y by 5.7e-2, against bf16 noise of
+    # 3.7e-3 (the CPU's own bf16 step), so the 2e-2 limit below tells them apart.
+    C = cfg.embed_dim
+    p["ada_lin"]["bias"][:, :C] += 10.0
+    p["ada_lin"]["bias"][:, C: 2 * C] += 1.0
     gx = torch.Generator().manual_seed(2)
     x0, x1 = (torch.randn(4, n, 128, generator=gx) for n in (2, 8))
     cond = torch.randn(4, 128, generator=gx)
@@ -460,12 +603,44 @@ def reference_phase(torch):
         y, _, _ = tfm.blocks_decode(bp, x1.to(device, dtype), cond.to(device), cfg, ck, cv, 2)
         return y.float().cpu()
 
-    want, got = run("cpu", torch.float32), run("cuda", torch.bfloat16)
-    rel = float((got - want).norm() / want.norm())
-    print(f"reference: tokenizer ids equal; bf16 GPU decode step vs fp32 CPU: "
-          f"relative error {rel:.3e}")
-    if rel > 2e-2:  # bf16 residual stream: ~3 significant digits per op
-        fail(f"reference: decode step relative error {rel:.3e} > 2e-2")
+    def run_seg(device, dtype):
+        bp = tree_to(p, device, dtype)
+        _, k0, v0 = tfm.blocks_decode_seg(bp, x0.to(device, dtype), cond.to(device), cfg, (), ())
+        y, _, _ = tfm.blocks_decode_seg(bp, x1.to(device, dtype), cond.to(device), cfg,
+                                        (k0,), (v0,))
+        return y.float().cpu()
+
+    def run_inplace(device, dtype):
+        bp = tree_to(p, device, dtype)
+        ck, cv = tfm.init_kv_cache(cfg, 4, cfg.seq_len, dtype, device)
+        _, ck, cv = tfm.blocks_decode(bp, x0.to(device, dtype), cond.to(device), cfg, ck, cv, 0,
+                                      inplace=True)
+        y, _, _ = tfm.blocks_decode(bp, x1.to(device, dtype), cond.to(device), cfg, ck, cv, 2,
+                                    inplace=True)
+        return y.float().cpu()
+
+    from controlvar_tpu_torch.ops.attention import (decode_attention, decode_attention_inplace,
+                                                    decode_attention_prefix)
+
+    # one step after scale 0, bf16 on the card against fp32 on the CPU: the
+    # residual stream is bf16, ~3 significant digits per op, so the relative
+    # L2 error is held to 2e-2
+    for name, fn, kernel, expect in (("decode step (K1)", run, decode_attention, 4),
+                                     ("seg-mode step (K1, then K5)", run_seg,
+                                      decode_attention_prefix, 2),
+                                     ("in-place step (K6)", run_inplace,
+                                      decode_attention_inplace, 4)):
+        want = fn("cpu", torch.float32)
+        kernel.launches = 0
+        got = fn("cuda", torch.bfloat16)
+        rel = float((got - want).norm() / want.norm())
+        print(f"reference: bf16 GPU {name} vs fp32 CPU: relative error {rel:.3e}, "
+              f"{kernel.launches} launches")
+        if rel > 2e-2:
+            fail(f"reference: {name} relative error {rel:.3e} > 2e-2")
+        if kernel.launches != expect:
+            fail(f"reference: {name} launched its kernel {kernel.launches} times, not {expect}")
+    print("reference: tokenizer ids equal")
 
     from controlvar_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
 
@@ -624,8 +799,88 @@ def main_path_phase(torch, cfg, profile: bool):
     return counts, B / dt
 
 
+def joint_path_phase(torch, cfg, profile: bool):
+    """The joint path at full width in its three cache modes; returns
+    {mode: ((K1, K2, K5, K6) launches of the timed call, img/s)}."""
+    from controlvar_tpu_torch.config import SampleConfig, VQVAEConfig
+    from controlvar_tpu_torch.eval.harness import SamplingHarness
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.ops.attention import (decode_attention, decode_attention_inplace,
+                                                    decode_attention_prefix)
+    from controlvar_tpu_torch.ops.sample_kernel import sample_top_k_top_p_bisect
+
+    B, D, S = 8, cfg.depth, cfg.num_scales
+    kernels = (decode_attention, sample_top_k_top_p_bisect, decode_attention_prefix,
+               decode_attention_inplace)
+    t0 = time.time()
+    model, vqvae = ControlVARModel(cfg), VQVAE(VQVAEConfig())
+    modes = {"stacked": (SamplingHarness(model, vqvae, SampleConfig()), (D * S, S, 0, 0)),
+             "kv_window=2": (SamplingHarness(model, vqvae, SampleConfig(kv_window=2)),
+                             (D, S, D * (S - 1), 0)),
+             "inplace_decode": (SamplingHarness(model, vqvae, SampleConfig(),
+                                                inplace_decode=True), (0, S, 0, D * S))}
+    params = modes["stacked"][0].prepare_params(model.init_params(0))
+    vq_params = vqvae.init_params(1)
+    labels = torch.arange(B) % cfg.num_classes
+    cond_type = torch.arange(B) % 4
+    print(f"joint path: d24 params and ch-160 VQVAE built in {time.time() - t0:.1f} s")
+
+    def call(mode, seed):
+        harness, expect = modes[mode]
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = harness.joint(params, vq_params, labels, cond_type,
+                            torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = tuple(k.launches for k in kernels)
+        if counts != expect:
+            fail(f"joint path, {mode}: launches (K1, K2, K5, K6) = {counts}, expected {expect}")
+        for t_ in out:
+            if tuple(t_.shape) != (B, 256, 256, 3) or not torch.isfinite(t_).all():
+                fail(f"joint path, {mode}: bad canvas {tuple(t_.shape)}")
+            if float(t_.min()) < 0.0 or float(t_.max()) > 1.0:
+                fail(f"joint path, {mode}: canvas outside [0, 1]")
+        return dt, counts
+
+    results = {}
+    for mode in modes:
+        dt_warm, _ = call(mode, 20)
+        dt, counts = call(mode, 21)
+        results[mode] = (counts, B / dt)
+        print(f"joint path, {mode}: warm-up call {dt_warm:.3f} s; timed call {dt:.4f} s for "
+              f"{B} images = {B / dt:.3f} img/s; launches K1={counts[0]} K2={counts[1]} "
+              f"K5={counts[2]} K6={counts[3]}")
+        if profile:
+            tag = "joint_" + mode.replace("=", "").replace("_decode", "")
+            busy, wall, by_cat = device_profile(torch, lambda: call(mode, 22)[0], tag)
+            print(f"{tag} breakdown: profiled call {wall:.2f} ms, device busy {busy:.2f} ms, "
+                  f"idle share {1 - busy / wall:.4f} of the profiled call, "
+                  f"{1 - busy / (dt * 1e3):.4f} of the timed call")
+            for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+                print(f"{tag} breakdown: {cat}: {ms:.2f} ms")
+    # A call's host clock varies by ~30% from call to call on this path (the
+    # host bounds it), so one timed call per mode cannot rank the modes:
+    # four more rounds, each calling every mode once in a rotated order.
+    times = {mode: [] for mode in modes}
+    order = list(modes)
+    for rnd in range(4):
+        for mode in order[rnd % 3:] + order[: rnd % 3]:
+            times[mode].append(call(mode, 30 + rnd)[0])
+    for mode, ts in times.items():
+        ts.sort()
+        med = 0.5 * (ts[1] + ts[2])
+        print(f"joint path, alternated, {mode}: calls {', '.join(f'{x:.4f}' for x in ts)} s; "
+              f"median {med:.4f} s = {B / med:.3f} img/s")
+    return results
+
+
 # kernel-name substrings of each device-time category, tested in this order
 CATEGORIES = (("K1 decode attention", ("decode_attention_kernel",)),
+              ("K5/K6 prefix decode", ("decode_prefix_kernel",)),
               ("K2 sampling", ("sample_bisect_kernel",)),
               ("K3 flash attention", ("flash_fwd_kernel",)),
               ("K4 flash attention backward", ("flash_bwd_",)),
@@ -716,7 +971,8 @@ def main() -> None:
 
     phase("build")
     t = time.time()
-    reports = _build.build(["decode_attention", "sample_bisect", "flash_attention"])
+    reports = _build.build(["decode_attention", "sample_bisect", "flash_attention",
+                            "decode_prefix"])
     print(f"built {sorted(reports) or 'nothing (cached)'} in {time.time() - t:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -731,6 +987,10 @@ def main() -> None:
     k2 = k2_phase(torch, cfg.vocab_size, cfg.patch_nums)
     phase("K3 flash attention and K4 backward vs plain")
     k3, k4 = flash_phase(torch, cfg)
+    cfg24 = control_var_config_from_depth(24, multi_cond=True)
+    phase("K5 prefix decode and K6 in-place decode vs plain")
+    k5, k6 = prefix_phase(torch, cfg24)
+    torch.cuda.empty_cache()
     phase("small-input reference")
     reference_phase(torch)
     phase("training path: ControlVAR-d16 train step, B=8")
@@ -738,13 +998,20 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase("serving path: ControlVAR-d16 control-conditioned generation, B=16")
     (k1["launches"], k2["launches"]), img_s = main_path_phase(torch, cfg, profile)
+    torch.cuda.empty_cache()
+    phase("joint path: ControlVAR-d24 joint generation, B=8, three cache modes")
+    joint = joint_path_phase(torch, cfg24, profile)
+    k5["launches"] = joint["kv_window=2"][0][2]
+    k6["launches"] = joint["inplace_decode"][0][3]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"training path: {s_step:.4f} s/step ({8 / s_step:.3f} img/s); serving path: "
-          f"{img_s:.3f} img/s on")
+          f"{img_s:.3f} img/s; joint path: " + ", ".join(
+              f"{mode} {r[1]:.3f} img/s" for mode, r in joint.items()) + " on")
     print(smi)
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in (k1, k2, k3, k4)]}))
+    print(json.dumps({"kernels": [{k: e[k] for k in keys}
+                                  for e in (k1, k2, k3, k4, k5, k6)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

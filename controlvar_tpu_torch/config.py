@@ -197,3 +197,6 @@ class SampleConfig:
     top_k: int = 900
     top_p: float = 0.96
     seed: int = 42
+    more_smooth: bool = False
+    # opt-in scale-aware KV window (lossy; segmented cache mode)
+    kv_window: Optional[int] = None

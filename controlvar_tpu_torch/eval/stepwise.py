@@ -1,20 +1,31 @@
-"""Teacher-forced conditional ControlVAR sampler (multi-scale CFG).
+"""Step-wise ControlVAR samplers: joint (control, image) generation and the
+teacher-forced conditional sampler (multi-scale CFG).
 
-Port of `controlvar_tpu/eval/stepwise.py:StepwiseCondSampler`. The JAX
-package compiles one jit per group of scales; here the scales are a plain
-Python loop over eager PyTorch ops and the two kernels (K1 decode attention
-in every layer, K2 bisection sampling once per scale).
+Port of `controlvar_tpu/eval/stepwise.py:StepwiseJointSampler` and
+`StepwiseCondSampler`. The JAX package compiles one jit per group of
+scales; here the scales are a plain Python loop over eager PyTorch ops and
+the kernels: K2 bisection sampling once per scale, and in every layer
+either K1 (the stacked cache, written then read), K6 (the stacked cache,
+`inplace_decode`: one fused write-and-attend launch) or, in the segmented
+cache mode, K1 at scale 0 and K5 after it.
 
-Per call: prologue (class and cond-type embeddings, SOS pair), then for each
-scale: `blocks_decode` over the R CFG branches, the CFG-combined head, one
-draw of the free tokens, the teacher-forced ids spliced in, the residual
-canvas update of both streams and the next scale's input map; then the
-VQVAE decode of the canvases.
+Per call: prologue (class and cond-type embeddings, SOS), then for each
+scale: the blocks over all CFG rows, the CFG-combined head, one draw, the
+residual canvas update of both streams and the next scale's input map; then
+the VQVAE decode of the canvases.
+
+Cache modes: "stacked" preallocates (depth, rows, H, L, hd) caches;
+"seg" keeps one (depth, rows, H, l_s, hd) segment per scale, and with
+`kv_window` w only the first segment and the last w (a lossy accelerant,
+the JAX package's `--kv_window`). As in the JAX package, "seg" quietly
+becomes "stacked" when `kv_layout` is not "paired". The JAX package's
+`CONTROLVAR_INPLACE_DECODE` env switch is the `inplace_decode` argument,
+for the stacked mode. Its `groups` (a grouping of jits) has no counterpart.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -24,13 +35,62 @@ from controlvar_tpu_torch.models import transformer as tfm
 from controlvar_tpu_torch.models.control_var import ControlVARModel
 from controlvar_tpu_torch.models.masks import attn_mask_for_config
 from controlvar_tpu_torch.models.vqvae import VQVAE
-from controlvar_tpu_torch.ops.sampling import sample_top_k_top_p
+from controlvar_tpu_torch.ops.sampling import gumbel_softmax, sample_top_k_top_p
 
 Params = Dict
 
 
-class _PrepareParamsMixin:
-    compute_dtype: torch.dtype = torch.bfloat16
+def _windowed_segs(segs_k, segs_v, w):
+    """Scale-aware KV window over per-scale cache segments: keep the first
+    segment (SOS and scale 0, the anchor every later scale attends to) and
+    the last `w`, dropping the middle; the identity while the prefix is
+    short or w is None."""
+    if w is None or len(segs_k) <= w + 1:
+        return segs_k, segs_v
+    return segs_k[:1] + segs_k[-w:], segs_v[:1] + segs_v[-w:]
+
+
+def _smooth_temperature(si: int, num_scales: int) -> Tuple[float, float]:
+    """more_smooth's (logit factor, gumbel temperature) at scale si."""
+    ratio = si / (num_scales - 1)
+    return 1.0 + ratio, max(0.27 * (1 - ratio * 0.95), 0.005)
+
+
+class _SamplerBase:
+    """What both samplers share: the bf16 weight cast, the cache modes and
+    the `indep` mask."""
+
+    model: ControlVARModel
+    vqvae: VQVAE
+    cache_mode: str
+    kv_window: Optional[int]
+    inplace_decode: bool
+    device: DeviceLike
+    compute_dtype: torch.dtype
+
+    def _setup(self):
+        cfg = self.model.cfg
+        if cfg.mask_factor != 2:
+            raise ValueError("ControlVAR sampling needs mask_factor=2")
+        if cfg.separator or cfg.type_pos:
+            raise NotImplementedError("separator/type_pos sampling is not ported yet")
+        self.device = resolve_device(self.device)
+        self.quant = self.vqvae.quantizer
+        self._full_mask = None
+        if cfg.indep:
+            self._full_mask = torch.from_numpy(attn_mask_for_config(cfg)).to(self.device)
+        if self.cache_mode not in ("stacked", "seg"):
+            raise ValueError(f"unknown cache_mode {self.cache_mode!r}")
+        if self.cache_mode == "seg" and tfm.kv_layout(cfg) != "paired":
+            self.cache_mode = "stacked"
+        if self.kv_window is not None:
+            if self.cache_mode != "seg":
+                raise ValueError("kv_window requires cache_mode='seg' (paired KV layout)")
+            if self._full_mask is not None:
+                raise ValueError("kv_window is unsupported with indep masking (mask "
+                                 "columns index the full prefix)")
+        if self.inplace_decode and self.cache_mode != "stacked":
+            raise ValueError("inplace_decode applies to cache_mode='stacked'")
 
     def prepare_params(self, params: Params) -> Params:
         """Cast the block weights to the compute dtype once; embeddings and
@@ -40,9 +100,136 @@ class _PrepareParamsMixin:
                                 self.compute_dtype)
         return out
 
+    def _init_caches(self, rows: int):
+        if self.cache_mode == "seg":
+            return (), ()
+        return tfm.init_kv_cache(self.model.cfg, rows, self.model.cfg.seq_len,
+                                 self.compute_dtype, self.device)
+
+    def _blocks(self, params, si, next_map, cond, cache_k, cache_v):
+        """The blocks over scale si's input map in the cache mode; returns
+        (hidden states, caches)."""
+        cfg = self.model.cfg
+        cur, hi = cfg.begin_ends[si]
+        mask_slice = None if self._full_mask is None else self._full_mask[cur:hi, :hi]
+        x = next_map.to(self.compute_dtype)
+        if self.cache_mode == "seg":
+            sk, sv = _windowed_segs(cache_k, cache_v, self.kv_window)
+            x, k_new, v_new = tfm.blocks_decode_seg(params["blocks"], x, cond, cfg, sk, sv,
+                                                    mask_slice=mask_slice)
+            return x, cache_k + (k_new,), cache_v + (v_new,)
+        return tfm.blocks_decode(params["blocks"], x, cond, cfg, cache_k, cache_v, cur,
+                                 mask_slice=mask_slice, inplace=self.inplace_decode)
+
+    def _decode(self, vq_params, fh):
+        return (self.vqvae.fhat_to_img(vq_params, fh, self.compute_dtype) + 1.0) * 0.5
+
 
 @dataclasses.dataclass
-class StepwiseCondSampler(_PrepareParamsMixin):
+class StepwiseJointSampler(_SamplerBase):
+    """Joint (control, image) CFG generation: two CFG branches [cond |
+    uncond] over B rows each, both streams drawn.
+
+    mask_first: the stream order of bidirectional models (the control
+    stream first when True). The returned canvases are always (control,
+    image)."""
+
+    model: ControlVARModel
+    vqvae: VQVAE
+    cfg_scale: float = 4.0
+    top_k: int = 900
+    top_p: float = 0.96
+    mask_first: bool = True
+    more_smooth: bool = False
+    cache_mode: str = "stacked"
+    kv_window: Optional[int] = None
+    inplace_decode: bool = False
+    device: DeviceLike = None
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        self._setup()
+
+    def _prologue(self, params, labels, cond_type):
+        cfg = self.model.cfg
+        labels2 = torch.cat([labels, torch.full_like(labels, cfg.num_classes)])
+        cond = params["class_emb"][labels2]
+        lvl_pos = self.model._lvl_pos(params)[:, : cfg.first_l]
+        if cfg.multi_cond:
+            ct2 = torch.cat([cond_type, torch.full_like(cond_type, COND_UNCOND_ID)])
+            ct_tok = params["cond_embed"][ct2]
+            pair = [ct_tok, cond] if self.mask_first else [cond, ct_tok]
+            return cond, torch.stack(pair, dim=1) + params["pos_start"] + lvl_pos
+        sos = cond[:, None, :] + params["pos_start"]
+        if cfg.bidirectional:
+            # the training side's sign convention for the two SOS halves
+            sign = -1.0 if self.mask_first else 1.0
+            half = cfg.first_l // 2
+            ch = torch.tensor([sign] * half + [-sign] * half, device=sos.device)
+            sos = sos * ch[None, :, None]
+        return cond, sos + lvl_pos
+
+    def _step(self, si, params, vq_params, cond, next_map, cache_k, cache_v, fh_c, fh_i,
+              generator):
+        cfg = self.model.cfg
+        pns, SN = cfg.patch_nums, cfg.num_scales
+        pn = pns[si]
+        B = next_map.shape[0] // 2
+        z = self.vqvae.cfg.z_channels
+        x, cache_k, cache_v = self._blocks(params, si, next_map, cond, cache_k, cache_v)
+        t = self.cfg_scale * si / (SN - 1)
+        logits = tfm.head_logits_cfg(params, x, cond, cfg, (1.0 + t, -t))[:, :, : cfg.vocab_size]
+        ids = sample_top_k_top_p(logits, self.top_k, self.top_p, generator)
+        l = pn * pn
+        if self.more_smooth:  # gumbel soft embeddings of both streams
+            factor, tau = _smooth_temperature(si, SN)
+            soft = gumbel_softmax(logits * factor, tau, generator=generator)
+            h_all = soft @ vq_params["quantize"]["embedding"].float()
+            h_c, h_i = h_all[:, :l], h_all[:, l:]
+        else:
+            h_c = self.quant.embed(vq_params["quantize"], ids[:, :l])
+            h_i = self.quant.embed(vq_params["quantize"], ids[:, l:])
+        fh_c, nxt_c = self.quant.next_ar_input(vq_params["quantize"], si, fh_c,
+                                               h_c.reshape(B, pn, pn, z))
+        fh_i, nxt_i = self.quant.next_ar_input(vq_params["quantize"], si, fh_i,
+                                               h_i.reshape(B, pn, pn, z))
+        if si != SN - 1:
+            nl = pns[si + 1] ** 2
+            nm = torch.cat([self.model._word_embed(params, nxt_c.reshape(B, nl, z)),
+                            self.model._word_embed(params, nxt_i.reshape(B, nl, z))], dim=1)
+            lo, hi = cfg.begin_ends[si + 1]
+            next_map = (nm + self.model._lvl_pos(params)[:, lo:hi]).repeat(2, 1, 1)
+        return next_map, cache_k, cache_v, fh_c, fh_i
+
+    @torch.no_grad()
+    def __call__(self, params, vq_params, labels, cond_type, generator: torch.Generator,
+                 decode_img: bool = True):
+        """labels, cond_type: (B,) class and cond-type ids. generator: a CPU
+        torch.Generator, the source of every draw. Returns the (control,
+        image) canvases (B, H, W, 3) in [0, 1], or their f_hats with
+        decode_img=False."""
+        pns = self.model.cfg.patch_nums
+        B = labels.shape[0]
+        z = self.vqvae.cfg.z_channels
+        cond, next_map = self._prologue(params, labels.to(self.device),
+                                        cond_type.to(self.device))
+        cache_k, cache_v = self._init_caches(2 * B)
+        fh_c = torch.zeros(B, pns[-1], pns[-1], z, device=self.device)
+        fh_i = torch.zeros(B, pns[-1], pns[-1], z, device=self.device)
+        for si in range(len(pns)):
+            next_map, cache_k, cache_v, fh_c, fh_i = self._step(
+                si, params, vq_params, cond, next_map, cache_k, cache_v, fh_c, fh_i,
+                generator)
+        if not self.mask_first:  # the first stream was the image: swap back
+            fh_c, fh_i = fh_i, fh_c
+        if not decode_img:
+            return fh_c, fh_i
+        both = self._decode(vq_params, torch.cat([fh_c, fh_i], dim=0))
+        return both[:B], both[B:]
+
+
+@dataclasses.dataclass
+class StepwiseCondSampler(_SamplerBase):
     """Conditional generation with one stream teacher-forced: the control
     stream for force="control", the image stream for force="image". Two
     token-stream groups [forced (B) | uncond (B)] share the forced copies;
@@ -55,24 +242,20 @@ class StepwiseCondSampler(_PrepareParamsMixin):
     top_p: float = 0.96
     force: str = "control"
     repeat_num: int = 4     # CFG branches: 4 or 3
+    more_smooth: bool = False
     decode: str = "both"    # "both", or only the generated "image"/"control"
+    cache_mode: str = "stacked"
+    kv_window: Optional[int] = None
+    inplace_decode: bool = False
     device: DeviceLike = None
     compute_dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
-        cfg = self.model.cfg
-        if cfg.mask_factor != 2 or cfg.separator or cfg.type_pos:
-            raise ValueError("conditional sampling needs mask_factor=2 and no "
-                             "separator/type_pos")
         if (self.repeat_num not in (3, 4) or self.force not in ("control", "image")
                 or self.decode not in ("both", "image", "control")):
             raise ValueError(f"unsupported repeat_num={self.repeat_num}, "
                              f"force={self.force!r} or decode={self.decode!r}")
-        self.device = resolve_device(self.device)
-        self.quant = self.vqvae.quantizer
-        self._full_mask = None
-        if cfg.indep:
-            self._full_mask = torch.from_numpy(attn_mask_for_config(cfg)).to(self.device)
+        self._setup()
 
     # -- pieces ---------------------------------------------------------------
 
@@ -96,18 +279,11 @@ class StepwiseCondSampler(_PrepareParamsMixin):
         pns = cfg.patch_nums
         SN = cfg.num_scales
         pn = pns[si]
-        seg = cfg.scale_seg_len(si)
-        cur = cfg.begin_ends[si][0]
         R = self.repeat_num
         B = next_map.shape[0] // R
         z = self.vqvae.cfg.z_channels
 
-        mask_slice = None
-        if self._full_mask is not None:
-            mask_slice = self._full_mask[cur: cur + seg, : cur + seg]
-        x, cache_k, cache_v = tfm.blocks_decode(
-            params["blocks"], next_map.to(self.compute_dtype), cond, cfg,
-            cache_k, cache_v, cur, mask_slice=mask_slice)
+        x, cache_k, cache_v = self._blocks(params, si, next_map, cond, cache_k, cache_v)
         t1, t2, t3 = (c * si / (SN - 1) for c in self.cfg_scales)
         # multi-scale CFG combined before the head matmul (weights sum to 1)
         w = ((1.0 + t1, t2 - t1, t3 - t2, -t3) if R == 4
@@ -126,28 +302,35 @@ class StepwiseCondSampler(_PrepareParamsMixin):
         else:
             ids_a = torch.cat([a_sampled, forced], dim=1)
         ids = torch.cat([ids_a, b_ids], dim=0)                    # (2B, 2l)
-        h_c = self.quant.embed(vq_params["quantize"], ids[:, :l]).reshape(2 * B, pn, pn, z)
-        h_i = self.quant.embed(vq_params["quantize"], ids[:, l:]).reshape(2 * B, pn, pn, z)
-        fh_c, nxt_c = self.quant.next_ar_input(vq_params["quantize"], si, fh_c, h_c)
-        fh_i, nxt_i = self.quant.next_ar_input(vq_params["quantize"], si, fh_i, h_i)
+        if self.more_smooth:  # gumbel soft embeddings of both groups' streams
+            factor, tau = _smooth_temperature(si, SN)
+            soft = gumbel_softmax(combined.repeat(2, 1, 1) * factor, tau, generator=generator)
+            h_all = soft @ vq_params["quantize"]["embedding"].float()
+            h_c, h_i = h_all[:, :l], h_all[:, l:]
+        else:
+            h_c = self.quant.embed(vq_params["quantize"], ids[:, :l])
+            h_i = self.quant.embed(vq_params["quantize"], ids[:, l:])
+        fh_c, nxt_c = self.quant.next_ar_input(vq_params["quantize"], si, fh_c,
+                                               h_c.reshape(2 * B, pn, pn, z))
+        fh_i, nxt_i = self.quant.next_ar_input(vq_params["quantize"], si, fh_i,
+                                               h_i.reshape(2 * B, pn, pn, z))
         if si != SN - 1:
             nl = pns[si + 1] ** 2
             nm_c = self.model._word_embed(params, nxt_c.reshape(2 * B, nl, z))
             nm_i = self.model._word_embed(params, nxt_i.reshape(2 * B, nl, z))
             nm = torch.cat([nm_c, nm_i], dim=1)
-            nxt_cur = cfg.begin_ends[si + 1][0]
-            nm = nm + self.model._lvl_pos(params)[:, nxt_cur: nxt_cur + cfg.scale_seg_len(si + 1)]
+            lo, hi = cfg.begin_ends[si + 1]
+            nm = nm + self.model._lvl_pos(params)[:, lo:hi]
             next_map = torch.cat([nm[:B].repeat(R - 1, 1, 1), nm[B:]], dim=0)
         return next_map, cache_k, cache_v, fh_c, fh_i
 
     def _epilogue(self, vq_params, fh_c, fh_i):
         B = fh_c.shape[0] // 2
-        dec = lambda fh: (self.vqvae.fhat_to_img(vq_params, fh, self.compute_dtype) + 1.0) * 0.5
         if self.decode == "image":
-            return fh_c[:B], dec(fh_i[:B])
+            return fh_c[:B], self._decode(vq_params, fh_i[:B])
         if self.decode == "control":
-            return dec(fh_c[:B]), fh_i[:B]
-        both = dec(torch.cat([fh_c[:B], fh_i[:B]], dim=0))
+            return self._decode(vq_params, fh_c[:B]), fh_i[:B]
+        both = self._decode(vq_params, torch.cat([fh_c[:B], fh_i[:B]], dim=0))
         return both[:B], both[B:]
 
     # -- run -------------------------------------------------------------------
@@ -166,8 +349,7 @@ class StepwiseCondSampler(_PrepareParamsMixin):
         labels = labels.to(self.device)
         cond_type = cond_type.to(self.device)
         cond, next_map = self._prologue(params, labels, cond_type)
-        cache_k, cache_v = tfm.init_kv_cache(cfg, self.repeat_num * B, cfg.seq_len,
-                                             self.compute_dtype, self.device)
+        cache_k, cache_v = self._init_caches(self.repeat_num * B)
         fh_c = torch.zeros(2 * B, pns[-1], pns[-1], z, device=self.device)
         fh_i = torch.zeros(2 * B, pns[-1], pns[-1], z, device=self.device)
         for si in range(cfg.num_scales):

@@ -15,7 +15,10 @@ the JAX package's default `full` remat policy).
 Decode keeps a preallocated (depth, B, H, L_max, hd) K/V cache per stream,
 written in place: each layer-step writes its fresh rows [pos, pos + l) and
 attention (ops/attention.decode_attention, kernel K1 on the GPU) reads rows
-[0, pos + l) of that layer through strides, with no copy of the prefix.
+[0, pos + l) of that layer through strides, with no copy of the prefix; or
+one K6 launch per layer-step does both (`inplace`). The segmented mode
+(`blocks_decode_seg`) keeps one (depth, B, H, l_s, hd) segment per scale
+instead, and attends over [kept segments | fresh rows] with K5.
 
 Stacked params (leading dim = depth), dense kernels as (in, out):
   qkv_kernel (D, C, 3C)   q_bias/v_bias (D, C)
@@ -32,7 +35,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from controlvar_tpu_torch.config import VARConfig
-from controlvar_tpu_torch.ops.attention import decode_attention, flash_mha
+from controlvar_tpu_torch.ops.attention import (decode_attention, decode_attention_inplace,
+                                                decode_attention_prefix, flash_mha)
 
 Params = Dict
 
@@ -227,28 +231,81 @@ def init_kv_cache(cfg: VARConfig, batch: int, max_len: int, dtype=torch.bfloat16
             torch.zeros(shape, dtype=dtype, device=device))
 
 
+def kv_layout(cfg: VARConfig) -> str:
+    """The JAX package's cache-layout rule (`controlvar_tpu/models/
+    transformer.py:kv_layout`): 'paired' for hd = 64 and an even head count,
+    else 'flat'. The port keeps one per-head cache layout; the rule decides,
+    as it does in the JAX package, whether a sampler may take the segmented
+    cache mode."""
+    return "paired" if (cfg.head_dim == 64 and cfg.num_heads % 2 == 0) else "flat"
+
+
 def blocks_decode(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfig,
                   cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
-                  mask_slice: Optional[torch.Tensor] = None
+                  mask_slice: Optional[torch.Tensor] = None, inplace: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One KV-cached decode step over all blocks.
 
     x: (B, l, C) tokens of the current scale; pos: first cache row they take.
     mask_slice: optional (l, pos + l) bool mask; None = attend to everything
-    cached. The caches are updated in place and returned.
+    cached. The caches are updated in place and returned. Each layer writes
+    its fresh rows, then attends over rows [0, pos + l) (K1); with inplace
+    and no mask, one K6 launch per layer does both (the JAX package's
+    CONTROLVAR_INPLACE_DECODE=1; a masked step keeps the split path there
+    too).
     """
     l = x.shape[1]
     cur = pos + l
     ada_all = _ada_all_layers(bp, F.silu(cond.float()), cfg)
     scale = 1.0 if cfg.cos_attn else cfg.attn_scale
+    fused = inplace and mask_slice is None
     for li in range(cfg.depth):
         def attn_fn(q, k, v, li=li):
+            if fused:
+                return decode_attention_inplace(q, cache_k, cache_v, k, v, li, pos, scale)
             cache_k[li, :, :, pos:cur] = k
             cache_v[li, :, :, pos:cur] = v
             return decode_attention(q, cache_k, cache_v, li, cur, scale, mask_slice)
 
         x = _block_body(_layer(bp, li), x, ada_all[li], cfg, attn_fn)
     return x, cache_k, cache_v
+
+
+def blocks_decode_seg(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfig,
+                      segs_k: Tuple[torch.Tensor, ...], segs_v: Tuple[torch.Tensor, ...],
+                      mask_slice: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step over segmented per-scale caches.
+
+    segs_k/segs_v: the kept earlier scales' K/V, each (depth, B, H, l_s,
+    hd); pos = sum of their l_s. Returns (y, k_seg, v_seg), this scale's
+    (depth, B, H, l, hd) segments, for the caller to append. Scale 0 (pos
+    == 0) attends over its fresh rows with K1; later scales attend over
+    [kept segments | fresh rows] with K5. mask_slice: optional (l, pos + l).
+    """
+    B, l = x.shape[:2]
+    pos = sum(s.shape[3] for s in segs_k)
+    ada_all = _ada_all_layers(bp, F.silu(cond.float()), cfg)
+    scale = 1.0 if cfg.cos_attn else cfg.attn_scale
+    shape = (cfg.depth, B, cfg.num_heads, l, cfg.head_dim)
+    k_seg, v_seg = x.new_empty(shape), x.new_empty(shape)
+    if pos:
+        # The kept segments are concatenated once per scale step, and K5
+        # reads layer li of the copy through strides. The copy writes and
+        # reads back 2 x depth*B*H*pos*hd elements: at the d24 joint path's
+        # final scale (16 CFG rows, pos = 848) 2 x 1.0 GB of bf16, ~1.2 ms at
+        # 3.35 TB/s, once, against 24 K5 launches that read the same bytes.
+        pre_k, pre_v = torch.cat(segs_k, dim=3), torch.cat(segs_v, dim=3)
+    for li in range(cfg.depth):
+        def attn_fn(q, k, v, li=li):
+            k_seg[li], v_seg[li] = k, v
+            if pos == 0:
+                return decode_attention(q, k_seg, v_seg, li, l, scale, mask_slice)
+            return decode_attention_prefix(q, pre_k[li], pre_v[li], k_seg[li], v_seg[li],
+                                           scale, mask_slice)
+
+        x = _block_body(_layer(bp, li), x, ada_all[li], cfg, attn_fn)
+    return x, k_seg, v_seg
 
 
 def head_logits(p: Params, x: torch.Tensor, cond: torch.Tensor,

@@ -1,5 +1,6 @@
-"""Attention kernels of the port: decode attention (K1) and the training
-flash attention forward (K3) and backward (K4).
+"""Attention kernels of the port: decode attention (K1), decode over
+[cache prefix | fresh rows] (K5) and its in-place variant (K6), and the
+training flash attention forward (K3) and backward (K4).
 
 `decode_attention` is the port of `controlvar_tpu/ops/attention.py:
 flash_decode_paired`: for one layer `li` of the (depth, B, H, L_max, hd)
@@ -9,6 +10,14 @@ cache it computes softmax(q*scale . K^T [mask -> -1e30]) . V over rows
 on a CPU tensor it takes `decode_attention_plain`, the einsum path of the JAX
 package's `_mha_decode_paired` on the per-head layout, with the TPU kernel's
 fp32 scores.
+
+`decode_attention_prefix` (K5, the port of `flash_decode_prefix`) attends
+over a prefix read through strides and the scale's fresh rows, for the
+segmented cache mode; `decode_attention_inplace` (K6, the port of
+`flash_decode_inplace`) also writes the fresh rows into the stacked cache.
+Both launch `csrc/decode_prefix.cu` on CUDA tensors; on CPU tensors they
+take `decode_attention_prefix_plain` (and, for K6, the write as a tensor
+copy). Their rounding points are the TPU prefix kernel's, not K1's.
 
 `flash_attention` (K3, the port of `flash_attention(..., return_lse=True)`)
 and `flash_attention_bwd` (K4, the port of `flash_attention_bwd`) launch
@@ -39,11 +48,11 @@ _ARGTYPES = [_C, _C, _C, _C, _C] + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6 
     ctypes.c_float, _C]
 
 
-def _lib():
-    lib = _build.load("decode_attention")
-    fn = lib.decode_attention_bf16
+def _entry(lib: str, name: str, argtypes):
+    """The C entry `name` of csrc/<lib>.cu, built and typed at first use."""
+    fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -105,16 +114,145 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tens
     out = torch.empty_like(q)
     kl, vl = cache_k[li], cache_v[li]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib()(q.data_ptr(), kl.data_ptr(), vl.data_ptr(),
-                 None if mask is None else mask.data_ptr(), out.data_ptr(),
-                 B, H, l, cur, *kl.stride()[:3], *vl.stride()[:3],
-                 float(_scale_in(torch.bfloat16, scale)), stream)
+    err = _entry("decode_attention", "decode_attention_bf16", _ARGTYPES)(
+        q.data_ptr(), kl.data_ptr(), vl.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        B, H, l, cur, *kl.stride()[:3], *vl.stride()[:3],
+        float(_scale_in(torch.bfloat16, scale)), stream)
     _build.check(err, "decode_attention launch")
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# decode over [cache prefix | fresh rows]: K5 (prefix) and K6 (in place)
+# ---------------------------------------------------------------------------
+
+_ROWS = [_C] + [ctypes.c_longlong] * 3  # a pointer and its (batch, head, row) strides
+_PREFIX_ARGTYPES = _ROWS * 5 + [_C, _C] + [ctypes.c_int] * 4 + [ctypes.c_float, _C]
+_INPLACE_ARGTYPES = _ROWS * 5 + [_C] + [ctypes.c_int] * 4 + [ctypes.c_float, _C]
+
+
+def _rows(t: torch.Tensor):
+    """A (B, H, n, hd) operand as the kernels take it: pointer and strides."""
+    return (t.data_ptr(), *t.stride()[:3])
+
+
+def decode_attention_prefix_plain(q: torch.Tensor, prefix_k: torch.Tensor,
+                                  prefix_v: torch.Tensor, k_new: torch.Tensor,
+                                  v_new: torch.Tensor, scale: float,
+                                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of q (B, H, l, hd) over [prefix (B, H, pos, hd) | fresh
+    (B, H, l, hd)] with the TPU prefix kernel's rounding points: fp32 scores
+    from the rounded q*scale, p = exp(s - m) over both ranges, p rounded to
+    q's dtype for the PV product, and the output divided by the sum of the
+    unrounded p after PV. These are not K1's (which normalizes p before
+    rounding it); they are K3's, so the computation is K3's plain forward
+    over the concatenated keys. mask: optional (l, pos + l) bool."""
+    k = torch.cat([prefix_k.to(q.dtype), k_new.to(q.dtype)], dim=2)
+    v = torch.cat([prefix_v.to(q.dtype), v_new.to(q.dtype)], dim=2)
+    return flash_attention_plain(q, k, v, mask, scale)[0]
+
+
+def _check_prefix_inputs(what: str, q, k_new, v_new):
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if q.dim() != 4 or q.shape[3] != 64:
+        raise ValueError(f"{what}: the kernel takes (B, H, l, 64) bf16 q, got "
+                         f"{q.dtype} {tuple(q.shape)}")
+    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new)):
+        _check_operand(name, t, tuple(q.shape), q.device, what)
+
+
+def decode_attention_prefix(q: torch.Tensor, prefix_k: torch.Tensor,
+                            prefix_v: torch.Tensor, k_new: torch.Tensor,
+                            v_new: torch.Tensor, scale: float,
+                            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decode attention over [prefix | fresh rows] (kernel K5).
+
+    q, k_new, v_new: (B, H, l, hd); prefix_k, prefix_v: (B, H, pos, hd),
+    e.g. one layer of a concatenated cache; all may have any (batch, head,
+    row) strides with dense rows. mask: optional (l, pos + l) bool, True =
+    attend. Returns (B, H, l, hd) contiguous."""
+    if q.device.type == "cpu":
+        return decode_attention_prefix_plain(q, prefix_k, prefix_v, k_new, v_new, scale,
+                                             mask)
+    what = "decode_attention_prefix"
+    _check_prefix_inputs(what, q, k_new, v_new)
+    B, H, l, hd = q.shape
+    pos = prefix_k.shape[2]
+    for name, t in (("prefix_k", prefix_k), ("prefix_v", prefix_v)):
+        _check_operand(name, t, (B, H, pos, hd), q.device, what)
+    if mask is not None:
+        if mask.shape != (l, pos + l) or mask.dtype != torch.bool or mask.device != q.device:
+            raise ValueError(f"{what}: mask must be ({l}, {pos + l}) bool on {q.device}, "
+                             f"got {mask.dtype} {tuple(mask.shape)}")
+        mask = mask.contiguous()
+    out = torch.empty(B, H, l, hd, dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _entry("decode_prefix", "decode_prefix_bf16", _PREFIX_ARGTYPES)(
+        *_rows(q), *_rows(prefix_k), *_rows(prefix_v), *_rows(k_new), *_rows(v_new),
+        None if mask is None else mask.data_ptr(), out.data_ptr(), B, H, l, pos,
+        float(_scale_in(torch.bfloat16, scale)), stream)
+    _build.check(err, f"{what} launch")
+    decode_attention_prefix.launches += 1
+    return out
+
+
+decode_attention_prefix.launches = 0
+
+
+def decode_attention_inplace_plain(q: torch.Tensor, cache_k: torch.Tensor,
+                                   cache_v: torch.Tensor, k_new: torch.Tensor,
+                                   v_new: torch.Tensor, li: int, pos: int,
+                                   scale: float) -> torch.Tensor:
+    """K6's plain version: the write as a tensor copy, then K5's plain
+    version over rows [0, pos) of layer li and the fresh rows."""
+    cur = pos + q.shape[2]
+    cache_k[li, :, :, pos:cur] = k_new
+    cache_v[li, :, :, pos:cur] = v_new
+    return decode_attention_prefix_plain(q, cache_k[li, :, :, :pos], cache_v[li, :, :, :pos],
+                                         k_new, v_new, scale)
+
+
+def decode_attention_inplace(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                             k_new: torch.Tensor, v_new: torch.Tensor, li: int, pos: int,
+                             scale: float) -> torch.Tensor:
+    """Write the fresh rows k_new/v_new (B, H, l, hd) into rows [pos, pos +
+    l) of layer li of the stacked (depth, B, H, L_max, hd) caches, in place,
+    touching no other row, and return the unmasked attention of q (B, H, l,
+    hd) over rows [0, pos) of that layer and the fresh rows (kernel K6; at
+    pos == 0 over the fresh rows alone)."""
+    if q.device.type == "cpu":
+        return decode_attention_inplace_plain(q, cache_k, cache_v, k_new, v_new, li, pos,
+                                              scale)
+    what = "decode_attention_inplace"
+    _check_prefix_inputs(what, q, k_new, v_new)
+    B, H, l, hd = q.shape
+    for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
+        if t.dim() != 5:
+            raise ValueError(f"{what}: {name} must be (depth, B, H, L_max, hd), got "
+                             f"{tuple(t.shape)}")
+        _check_operand(name, t[0], (B, H, t.shape[3], hd), q.device, what)
+    if cache_k.shape != cache_v.shape:
+        raise ValueError(f"{what}: cache_k {tuple(cache_k.shape)} and cache_v "
+                         f"{tuple(cache_v.shape)} differ")
+    if not 0 <= li < cache_k.shape[0] or not 0 <= pos <= cache_k.shape[3] - l:
+        raise ValueError(f"{what}: li={li}, pos={pos} (l={l}) out of range")
+    out = torch.empty(B, H, l, hd, dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _entry("decode_prefix", "decode_inplace_bf16", _INPLACE_ARGTYPES)(
+        *_rows(q), *_rows(cache_k[li]), *_rows(cache_v[li]), *_rows(k_new), *_rows(v_new),
+        out.data_ptr(), B, H, l, pos, float(_scale_in(torch.bfloat16, scale)), stream)
+    _build.check(err, f"{what} launch")
+    decode_attention_inplace.launches += 1
+    return out
+
+
+decode_attention_inplace.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -128,35 +266,28 @@ _BWD_ARGTYPES = ([_C] + [ctypes.c_longlong] * 3) * 4 + [_C] * 7 + [ctypes.c_int]
 _TILE = 64  # rows of the kernels' tiles
 
 
-def _flash_lib(name: str, argtypes):
-    fn = getattr(_build.load("flash_attention"), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     """fp32 for bf16/fp32 inputs (the kernels' accumulators), fp64 for fp64
     (gradcheck)."""
     return torch.promote_types(dtype, torch.float32)
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
+def _scores(q: torch.Tensor, k: torch.Tensor, mask: Optional[torch.Tensor],
             scale: float) -> torch.Tensor:
     """(q*scale rounded to q's dtype) . K^T in the accumulator dtype, masked
     scores at -1e30: the TPU kernels' S, forward and backward alike."""
     acc = _acc_dtype(q.dtype)
     qs = q * _scale_in(q.dtype, scale).to(q.device)
     s = torch.einsum("bhqd,bhkd->bhqk", qs.to(acc), k.to(acc))
-    return torch.where(mask, s, NEG_INF)
+    return s if mask is None else torch.where(mask, s, NEG_INF)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          mask: torch.Tensor, scale: float
+                          mask: Optional[torch.Tensor], scale: float
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, H, L, hd) q, k, v and an (L, L) bool mask -> (out (B, H, L, hd) in
-    q's dtype, lse (B, H, L) fp32). Scores, softmax sums and the PV product
+    q's dtype, lse (B, H, L) fp32); with q of l < L rows the mask is (l, L),
+    and None leaves the scores unmasked. Scores, softmax sums and the PV product
     accumulate in fp32; p is rounded to q's dtype before PV, and out =
     acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)), as in the TPU kernel."""
     acc = _acc_dtype(q.dtype)
@@ -188,12 +319,13 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
-def _check_operand(name: str, t: torch.Tensor, shape, device) -> None:
+def _check_operand(name: str, t: torch.Tensor, shape, device,
+                   what: str = "flash attention") -> None:
     if t.device != device or t.dtype != torch.bfloat16 or tuple(t.shape) != shape:
-        raise ValueError(f"flash attention: {name} must be a bf16 {shape} tensor on "
+        raise ValueError(f"{what}: {name} must be a bf16 {shape} tensor on "
                          f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-        raise ValueError(f"flash attention: {name} rows must be dense and 16-byte "
+        raise ValueError(f"{what}: {name} rows must be dense and 16-byte "
                          f"aligned, got strides {t.stride()}")
 
 
@@ -262,7 +394,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(B, H, L, hd, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _flash_lib("flash_fwd_bf16", _FWD_ARGTYPES)(
+    err = _entry("flash_attention", "flash_fwd_bf16", _FWD_ARGTYPES)(
         q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
         v.data_ptr(), *v.stride()[:3], mask.data_ptr(), flags.data_ptr(), out.data_ptr(),
         lse.data_ptr(),
@@ -296,7 +428,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dsum = (g.float() * out.float()).sum(dim=-1)
     dq, dk, dv = (torch.empty(B, H, L, hd, dtype=q.dtype, device=q.device) for _ in range(3))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _flash_lib("flash_bwd_bf16", _BWD_ARGTYPES)(
+    err = _entry("flash_attention", "flash_bwd_bf16", _BWD_ARGTYPES)(
         q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
         v.data_ptr(), *v.stride()[:3], g.data_ptr(), *g.stride()[:3],
         mask.data_ptr(), flags.data_ptr(), lse.data_ptr(), dsum.data_ptr(),

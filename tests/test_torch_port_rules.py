@@ -30,7 +30,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_port_has_sources_and_kernels():
     assert len(PORT_FILES) > 10
     assert sorted(p.name for p in (ROOT / "controlvar_tpu_torch" / "csrc").glob("*.cu")) == [
-        "decode_attention.cu", "flash_attention.cu", "sample_bisect.cu"]
+        "decode_attention.cu", "decode_prefix.cu", "flash_attention.cu", "sample_bisect.cu"]
 
 
 @pytest.fixture
@@ -42,7 +42,7 @@ def test_entry_points_raise_without_cuda_and_device(no_cuda):
     from controlvar_tpu_torch.ckpt.convert import from_jax_params
     from controlvar_tpu_torch.config import ControlVARConfig, VQVAEConfig
     from controlvar_tpu_torch.eval.harness import SamplingHarness
-    from controlvar_tpu_torch.eval.stepwise import StepwiseCondSampler
+    from controlvar_tpu_torch.eval.stepwise import StepwiseCondSampler, StepwiseJointSampler
     from controlvar_tpu_torch.models.control_var import ControlVARModel
     from controlvar_tpu_torch.models.vqvae import VQVAE
 
@@ -60,17 +60,25 @@ def test_entry_points_raise_without_cuda_and_device(no_cuda):
         SamplingHarness(model, vqvae)
     with pytest.raises(RuntimeError, match="CUDA"):
         StepwiseCondSampler(model, vqvae)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StepwiseJointSampler(model, vqvae)
     assert SamplingHarness(model, vqvae, device="cpu").device == torch.device("cpu")
 
 
 def test_kernel_wrappers_reject_other_devices():
-    from controlvar_tpu_torch.ops.attention import decode_attention
+    from controlvar_tpu_torch.ops.attention import (decode_attention,
+                                                    decode_attention_inplace,
+                                                    decode_attention_prefix)
     from controlvar_tpu_torch.ops.sample_kernel import sample_top_k_top_p_bisect
 
     q = torch.zeros(1, 2, 3, 64, device="meta")
     cache = torch.zeros(1, 1, 2, 8, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         decode_attention(q, cache, cache, 0, 3, 0.125)
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode_attention_prefix(q, cache[0], cache[0], q, q, 0.125)
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode_attention_inplace(q, cache, cache, q, q, 0, 2, 0.125)
     with pytest.raises(ValueError, match="unsupported device"):
         sample_top_k_top_p_bisect(torch.zeros(2, 64, device="meta"), 8, 0.9)
 
@@ -79,6 +87,10 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
     csrc = ROOT / "controlvar_tpu_torch" / "csrc"
     assert "ops/attention.py:flash_decode_paired" in (csrc / "decode_attention.cu").read_text()
     assert "ops/sample_kernel.py:" in (csrc / "sample_bisect.cu").read_text()
+    prefix = (csrc / "decode_prefix.cu").read_text()
+    for name in ("flash_decode_prefix", "_prefix_kernel_paired", "flash_decode_inplace",
+                 "_inplace_kernel"):
+        assert name in prefix
     flash = (csrc / "flash_attention.cu").read_text()
     for name in ("ops/attention.py:flash_attention", "_flash_kernel",
                  "ops/attention.py:flash_attention_bwd", "_flash_bwd_dq_kernel",
