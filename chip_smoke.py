@@ -25,22 +25,31 @@ Run from the root of a checkout. Phases, each fatal on failure:
      check that it changed exactly rows [pos, pos + l) of layer li; all on
      the strided views the decode paths give them; with their times, the
      plain versions' and SDPA's over the concatenated K/V;
-  7. small-input reference: fp32 tokenizer ids on the GPU equal the CPU's;
-     one bf16 decode step through K1, one segmented-cache step through K5
-     and one in-place step through K6 agree with the fp32 CPU path; one
-     tiny-config bf16 train step through K3/K4 agrees with the fp32 CPU step
-     (loss, and the direction of the whole gradient and of each block leaf's);
-  8. the training path at full width: ControlVAR-d16 (multi_cond), the
+  7. K7 flat decode vs its plain version at every scale's (l, cur) of the
+     VAR-d13 path (128 CFG rows, 13 heads of 64, L = 680, the flat layout)
+     and at hd 32, 96 and 128 on a ragged masked shape; K8 fused decode
+     bit-equal to K1 on the same rows and vs its plain version at every
+     scale of the VAR-d12 path (128 CFG rows, 12 heads), masked and
+     unmasked; all on the cache-layer views the decode paths give them and
+     q strided as the fused QKV gives it; with their times, the plain
+     versions' and SDPA's over contiguous K/V made outside the time;
+  8. small-input reference: fp32 tokenizer ids on the GPU equal the CPU's;
+     one bf16 decode step through each decode kernel (K1; the segmented
+     mode, K5; in place, K6; the flat layout of three heads of 64, K7; the
+     fused cache, K8) agrees with the fp32 CPU path; one tiny-config bf16
+     train step through K3/K4 agrees with the fp32 CPU step (loss, and the
+     direction of the whole gradient and of each block leaf's);
+  9. the training path at full width: ControlVAR-d16 (multi_cond), the
      ch-160 VQVAE frozen inside the step, B=8 seeded 256x256 image/mask
      batches, AdamW (OptimConfig(total_batch_size=8)), one warm-up step and
      five timed steps, with K3/K4 launch counts read around each step;
-  9. the serving path at full width: ControlVAR-d16 (multi_cond) and the
+ 10. the serving path at full width: ControlVAR-d16 (multi_cond) and the
      ch-160 VQVAE, random weights from a seed,
      SamplingHarness.control_conditioned on 16 seeded 256x256 control images
      (tokenize, 10 scales with 4-way CFG, top-k 900, top-p 0.96, decode both
      canvases), one warm-up call and one timed call, with K1/K2 launch
      counts read around each call;
- 10. the joint path at full width: ControlVAR-d24 (multi_cond) and the
+ 11. the joint path at full width: ControlVAR-d24 (multi_cond) and the
      ch-160 VQVAE, random weights from a seed, SamplingHarness.joint on B=8
      (labels arange(8), cond types i % 4; 10 scales with 2-way CFG 4.0,
      top-k 900, top-p 0.96, decode both canvases) in three cache modes:
@@ -48,17 +57,26 @@ Run from the root of a checkout. Phases, each fatal on failure:
      inplace_decode (K6); one warm-up and one timed call each, then four
      rounds that call every mode once in a rotated order (the median of
      each mode's four calls), with the launch counts of K1, K2, K5 and K6
-     read around every call.
-Prints the card, a `kernels` JSON line (K1-K6) and, last,
+     read around every call;
+ 12. the VAR path at full width (BASELINE config 2): VAR-d12 and the ch-160
+     VQVAE, random weights from a seed, StepwiseVARSampler on B=64 (labels
+     arange(64); 10 scales with 2-way CFG 1.5, top-k 900, top-p 0.96, images
+     decoded) with the stacked cache (K1 120 launches a call) and with
+     kv_fused (K8 120), one warm-up and one timed call each and four
+     alternated rounds; then VAR-d13, whose 13 heads take the flat layout
+     (K7 130), one warm-up and one timed call; K2 10 a call in each, the
+     launch counts of K1, K2, K7 and K8 read around every call.
+Prints the card, a `kernels` JSON line (K1-K8) and, last,
 {"ok": true, "device": ...}.
 It exits non-zero, printing no result, without CUDA or outside a checkout.
---profile adds, for each path (and each joint cache mode), the device busy
+--profile adds, for each path (and each joint and VAR cache mode), the device busy
 time, the idle share and kernel time by category from torch.profiler over
 one more step or call (and host-clock phases of the serving call); the
 kernel tables go to chiprun_out/chip_smoke_profile_<path>.txt.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -69,10 +87,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
-# The attention kernels' limits (K1, K3, K4, K5 and K6). Per element,
+# The attention kernels' limits (K1, K3-K8). Per element,
 # |got - want| <= 2^-7 (|want| + mag), mag = sum_j |x_j| |y_j| over the
 # terms of the product that goes through a bf16 rounding on both sides: p.V
-# for K1, K3, K5, K6 and K4's dv (mag = the plain version on |V|, or |P|^T
+# for K1, K3, K5-K8 and K4's dv (mag = the plain version on |V|, or |P|^T
 # |dO|), and dS.K and dS^T.q for K4's dq and dk (mag = scale |dS| |K|,
 # scale |dS|^T |q|). Both sides round p (or dS) to bf16 (rel. err <= 2^-9
 # each) from fp32 values that differ in their last bits (K1/K3 round p
@@ -533,6 +551,107 @@ def prefix_phase(torch, cfg):
                  ms=ms6, plain_ms=plain6, bound_ms=b6[0], bound_by=b6[1], library_ms=lib6))
 
 
+def flat_fused_phase(torch, cfg12, cfg13):
+    """K7 (flat decode) vs its plain version at every scale of the VAR-d13
+    path and at hd 32, 96, 128 on a ragged masked shape; K8 (fused decode)
+    vs K1 on the same rows (bit-equal) and vs its plain version at every
+    scale of the VAR-d12 path, masked and unmasked; times at the final
+    scale. Returns the two kernels-line entries."""
+    import torch.nn.functional as F
+
+    from controlvar_tpu_torch.ops.attention import (
+        decode_attention, decode_attention_flat, decode_attention_flat_plain,
+        decode_attention_fused, decode_attention_fused_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    dev, bf, R_B = "cuda", torch.bfloat16, 128       # B = 64 CFG pairs
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+
+    def fresh_q(B, H, l, hd):
+        """q of std 4 (scores of std ~1 after VAR's 1/(4 sqrt(hd)) scale), the
+        strided (B, H, l, hd) view of a fused QKV output, as the blocks give it."""
+        return (4 * randn(B, l, 3, H, hd)).to(bf).permute(2, 0, 3, 1, 4)[0]
+
+    def rand_mask(l, cur):
+        mask = torch.rand(l, cur, generator=g, device=dev) > 0.3
+        mask[:, 0] = True
+        return mask
+
+    def timing(name, kernel, plain, q, k, v, scale, nbytes_kv):
+        """kernel, plain and SDPA times (SDPA over contiguous K/V made outside
+        the time) and the bound of one final-scale launch."""
+        B, H, l, hd = q.shape
+        ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20)
+        cur = k.shape[2]
+        b_ms, b_by = bound_ms(2 * 2 * q.numel() + nbytes_kv, 4 * B * H * l * cur * hd,
+                              PEAK_BF16_FLOPS)
+        print(f"{name} final scale (l={l}, cur={cur}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # K7 over layer 1 of the flat (2, R_B, 13, 64, L) VAR-d13 cache
+    H, hd, L, scale = cfg13.num_heads, cfg13.head_dim, cfg13.seq_len, cfg13.attn_scale
+    ck, cv = (randn(2, R_B, H, hd, -(-L // 8) * 8).to(bf) for _ in range(2))
+    errs7 = []
+    for lo, cur in cfg13.begin_ends:
+        q = fresh_q(R_B, H, cur - lo, hd)
+        got = decode_attention_flat(q, ck, cv, 1, cur, scale)
+        kk, vv = ck[1, ..., :cur], cv[1, ..., :cur]
+        want = decode_attention_flat_plain(q, kk, vv, scale)
+        mag = decode_attention_flat_plain(q, kk, vv.abs(), scale)
+        errs7.append(check_close(f"K7 d13 l={cur - lo} cur={cur}", got, want, mag))
+    for hd_r in (32, 96, 128):   # other head dims: ragged l and cur, masked
+        l, cur, sc = 37, 83, 1.0 / hd_r ** 0.5 / 4
+        q = fresh_q(2, 3, l, hd_r)
+        ckr, cvr = (randn(2, 2, 3, hd_r, 88).to(bf) for _ in range(2))
+        mask = rand_mask(l, cur)
+        got = decode_attention_flat(q, ckr, cvr, 1, cur, sc, mask)
+        kk, vv = ckr[1, ..., :cur], cvr[1, ..., :cur]
+        want = decode_attention_flat_plain(q, kk, vv, sc, mask)
+        mag = decode_attention_flat_plain(q, kk, vv.abs(), sc, mask)
+        errs7.append(check_close(f"K7 ragged (2, 3, {l}, {hd_r}), cur={cur}, masked", got, want,
+                                 mag))
+    q = fresh_q(R_B, H, L - cfg13.begin_ends[-1][0], hd)
+    kk, vv = ck[1, ..., :L], cv[1, ..., :L]
+    k_c, v_c = kk.transpose(2, 3).contiguous(), vv.transpose(2, 3).contiguous()
+    k7 = dict(name="decode_attention_flat", route="cuda",
+              source="controlvar_tpu_torch/csrc/decode_flat.cu",
+              replaces="controlvar_tpu/ops/attention.py:240", max_abs_err=max(errs7),
+              **timing("K7 d13", lambda: decode_attention_flat(q, ck, cv, 1, L, scale),
+                       lambda: decode_attention_flat_plain(q, kk, vv, scale), q, k_c, v_c,
+                       scale, 2 * 2 * kk.numel()))
+    del ck, cv, k_c, v_c
+
+    # K8 over layer 1 of the fused (2, R_B, 12, L, 128) VAR-d12 cache, K1 over
+    # the paired layout's two caches holding the same rows
+    H, hd, L, scale = cfg12.num_heads, cfg12.head_dim, cfg12.seq_len, cfg12.attn_scale
+    kv = randn(2, R_B, H, L, 2 * hd).to(bf)
+    ck, cv = kv[..., :hd].contiguous(), kv[..., hd:].contiguous()
+    errs8 = []
+    for lo, cur in cfg12.begin_ends:
+        for mask in (None, rand_mask(cur - lo, cur)):
+            q = fresh_q(R_B, H, cur - lo, hd)
+            got = decode_attention_fused(q, kv, 1, cur, scale, mask)
+            name = f"K8 d12 l={cur - lo} cur={cur}{' masked' if mask is not None else ''}"
+            if not torch.equal(got, decode_attention(q, ck, cv, 1, cur, scale, mask)):
+                fail(f"{name}: differs from K1 on the same rows")
+            want = decode_attention_fused_plain(q, kv[1, :, :, :cur], scale, mask)
+            mag = decode_attention_fused_plain(
+                q, torch.cat([kv[1, :, :, :cur, :hd], kv[1, :, :, :cur, hd:].abs()], -1),
+                scale, mask)
+            errs8.append(check_close(f"{name} (bit-equal to K1)", got, want, mag))
+    q = fresh_q(R_B, H, L - cfg12.begin_ends[-1][0], hd)
+    k_c, v_c = ck[1, :, :, :L].contiguous(), cv[1, :, :, :L].contiguous()
+    k8 = dict(name="decode_attention_fused", route="cuda",
+              source="controlvar_tpu_torch/csrc/decode_attention.cu",
+              replaces="controlvar_tpu/ops/attention.py:503", max_abs_err=max(errs8),
+              **timing("K8 d12", lambda: decode_attention_fused(q, kv, 1, L, scale),
+                       lambda: decode_attention_fused_plain(q, kv[1, :, :, :L], scale), q,
+                       k_c, v_c, scale, 2 * kv[1, :, :, :L].numel()))
+    return k7, k8
+
+
 def _tiny_train(torch, device, dtype):
     """One pre-tokenized train step of a tiny config (hd = 64, L = 42) from
     fixed weights and ids; returns (loss, grad_norm, flattened gradients)."""
@@ -563,8 +682,10 @@ def _tiny_train(torch, device, dtype):
 
 def reference_phase(torch):
     """Small inputs against the CPU: fp32 tokenizer ids bit-equal; one bf16
-    decode step through K1 close to the fp32 plain path; one bf16 train step
-    through K3/K4 close to the fp32 CPU step."""
+    decode step through each decode kernel (K1; K5 in the seg mode; K6 in
+    place; K7 over the flat layout; K8 over the fused cache) close to the
+    fp32 plain path; one bf16 train step through K3/K4 close to the fp32 CPU
+    step."""
     from controlvar_tpu_torch.config import ControlVARConfig, VQVAEConfig
     from controlvar_tpu_torch.device import tree_to
     from controlvar_tpu_torch.models import transformer as tfm
@@ -581,55 +702,65 @@ def reference_phase(torch):
         if not torch.equal(a, b.cpu()):
             fail("reference: fp32 tokenizer ids on the GPU differ from the CPU's")
 
-    cfg = ControlVARConfig(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4),
-                           vocab_size=64, cvae=32, num_classes=8, multi_cond=True)
-    p = ControlVARModel(cfg, device="cpu").init_params(1)["blocks"]
-    # At init the AdaLN gate columns are 1e-3 of the rest, which leaves the
-    # attention output out of y: zeroing the whole cached prefix moves y by
-    # 7e-7 (relative L2, fp32 on the CPU). With the attention gate raised by
-    # 10 and the FFN gate by 1 it moves y by 5.7e-2, against bf16 noise of
-    # 3.7e-3 (the CPU's own bf16 step), so the 2e-2 limit below tells them apart.
-    C = cfg.embed_dim
-    p["ada_lin"]["bias"][:, :C] += 10.0
-    p["ada_lin"]["bias"][:, C: 2 * C] += 1.0
-    gx = torch.Generator().manual_seed(2)
-    x0, x1 = (torch.randn(4, n, 128, generator=gx) for n in (2, 8))
-    cond = torch.randn(4, 128, generator=gx)
+    tiny = dict(depth=2, patch_nums=(1, 2, 4), vocab_size=64, cvae=32, num_classes=8,
+                multi_cond=True)
+    cfg = ControlVARConfig(embed_dim=128, num_heads=2, **tiny)
+    # three heads of 64: the flat layout, read by K7
+    flat_cfg = ControlVARConfig(embed_dim=192, num_heads=3, **tiny)
 
-    def run(device, dtype):
+    def gated(cfg):
+        """The blocks of a tiny config, with the AdaLN gates raised. At init
+        the gate columns are 1e-3 of the rest, which leaves the attention
+        output out of y: zeroing the whole cached prefix moves y by 7e-7
+        (relative L2, fp32 on the CPU). With the attention gate raised by 10
+        and the FFN gate by 1 it moves y by 5.7e-2, against bf16 noise of
+        3.7e-3 (the CPU's own bf16 step), so the 2e-2 limit below tells them
+        apart."""
+        p = ControlVARModel(cfg, device="cpu").init_params(1)["blocks"]
+        C = cfg.embed_dim
+        p["ada_lin"]["bias"][:, :C] += 10.0
+        p["ada_lin"]["bias"][:, C: 2 * C] += 1.0
+        return p
+
+    def inputs(C):
+        gx = torch.Generator().manual_seed(2)
+        return tuple(torch.randn(4, n, C, generator=gx) for n in (2, 8)) + (
+            torch.randn(4, C, generator=gx),)
+
+    def run(device, dtype, cfg=cfg, p=gated(cfg), xs=inputs(128), fused=False, **kw):
+        """Two decode steps over the stacked cache of cfg's layout (the fused
+        one on request); y of the second."""
         bp = tree_to(p, device, dtype)
-        ck, cv = tfm.init_kv_cache(cfg, 4, cfg.seq_len, dtype, device)
-        _, ck, cv = tfm.blocks_decode(bp, x0.to(device, dtype), cond.to(device), cfg, ck, cv, 0)
-        y, _, _ = tfm.blocks_decode(bp, x1.to(device, dtype), cond.to(device), cfg, ck, cv, 2)
+        x0, x1, cond = (t.to(device) for t in xs)
+        ck, cv = tfm.init_kv_cache(cfg, 4, cfg.seq_len, dtype, device, fused=fused)
+        _, ck, cv = tfm.blocks_decode(bp, x0.to(dtype), cond, cfg, ck, cv, 0, **kw)
+        y, _, _ = tfm.blocks_decode(bp, x1.to(dtype), cond, cfg, ck, cv, 2, **kw)
         return y.float().cpu()
 
-    def run_seg(device, dtype):
+    def run_seg(device, dtype, p=gated(cfg), xs=inputs(128)):
         bp = tree_to(p, device, dtype)
-        _, k0, v0 = tfm.blocks_decode_seg(bp, x0.to(device, dtype), cond.to(device), cfg, (), ())
-        y, _, _ = tfm.blocks_decode_seg(bp, x1.to(device, dtype), cond.to(device), cfg,
-                                        (k0,), (v0,))
+        x0, x1, cond = (t.to(device) for t in xs)
+        _, k0, v0 = tfm.blocks_decode_seg(bp, x0.to(dtype), cond, cfg, (), ())
+        y, _, _ = tfm.blocks_decode_seg(bp, x1.to(dtype), cond, cfg, (k0,), (v0,))
         return y.float().cpu()
 
-    def run_inplace(device, dtype):
-        bp = tree_to(p, device, dtype)
-        ck, cv = tfm.init_kv_cache(cfg, 4, cfg.seq_len, dtype, device)
-        _, ck, cv = tfm.blocks_decode(bp, x0.to(device, dtype), cond.to(device), cfg, ck, cv, 0,
-                                      inplace=True)
-        y, _, _ = tfm.blocks_decode(bp, x1.to(device, dtype), cond.to(device), cfg, ck, cv, 2,
-                                    inplace=True)
-        return y.float().cpu()
-
-    from controlvar_tpu_torch.ops.attention import (decode_attention, decode_attention_inplace,
+    from controlvar_tpu_torch.ops.attention import (decode_attention, decode_attention_flat,
+                                                    decode_attention_fused,
+                                                    decode_attention_inplace,
                                                     decode_attention_prefix)
 
     # one step after scale 0, bf16 on the card against fp32 on the CPU: the
     # residual stream is bf16, ~3 significant digits per op, so the relative
     # L2 error is held to 2e-2
-    for name, fn, kernel, expect in (("decode step (K1)", run, decode_attention, 4),
-                                     ("seg-mode step (K1, then K5)", run_seg,
-                                      decode_attention_prefix, 2),
-                                     ("in-place step (K6)", run_inplace,
-                                      decode_attention_inplace, 4)):
+    flat = functools.partial(run, cfg=flat_cfg, p=gated(flat_cfg), xs=inputs(192))
+    for name, fn, kernel, expect in (
+            ("decode step (K1)", run, decode_attention, 4),
+            ("seg-mode step (K1, then K5)", run_seg, decode_attention_prefix, 2),
+            ("in-place step (K6)", functools.partial(run, inplace=True),
+             decode_attention_inplace, 4),
+            ("flat-layout step, 3 heads of 64 (K7)", flat, decode_attention_flat, 4),
+            ("fused-cache step (K8)", functools.partial(run, fused=True),
+             decode_attention_fused, 4)):
         want = fn("cpu", torch.float32)
         kernel.launches = 0
         got = fn("cuda", torch.bfloat16)
@@ -862,24 +993,99 @@ def joint_path_phase(torch, cfg, profile: bool):
                   f"{1 - busy / (dt * 1e3):.4f} of the timed call")
             for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
                 print(f"{tag} breakdown: {cat}: {ms:.2f} ms")
-    # A call's host clock varies by ~30% from call to call on this path (the
-    # host bounds it), so one timed call per mode cannot rank the modes:
-    # four more rounds, each calling every mode once in a rotated order.
+    alternated(call, list(modes), B, "joint path")
+    return results
+
+
+def alternated(call, modes, B, label, rounds: int = 4):
+    """A call's host clock varies by ~30% from call to call on the generation
+    paths (the host bounds them), so one timed call per mode cannot rank the
+    modes: `rounds` more rounds, each calling every mode once in a rotated
+    order, and the median of each mode's calls."""
     times = {mode: [] for mode in modes}
-    order = list(modes)
-    for rnd in range(4):
-        for mode in order[rnd % 3:] + order[: rnd % 3]:
+    for rnd in range(rounds):
+        for mode in modes[rnd % len(modes):] + modes[: rnd % len(modes)]:
             times[mode].append(call(mode, 30 + rnd)[0])
     for mode, ts in times.items():
         ts.sort()
-        med = 0.5 * (ts[1] + ts[2])
-        print(f"joint path, alternated, {mode}: calls {', '.join(f'{x:.4f}' for x in ts)} s; "
+        med = 0.5 * (ts[(rounds - 1) // 2] + ts[rounds // 2])
+        print(f"{label}, alternated, {mode}: calls {', '.join(f'{x:.4f}' for x in ts)} s; "
               f"median {med:.4f} s = {B / med:.3f} img/s")
+
+
+def var_path_phase(torch, cfg, modes, profile: bool, timed_rounds: bool):
+    """VAR class-conditional generation at full width (BASELINE config 2:
+    B = 64, labels arange(64) % 1000, cfg 1.5, top-k 900, top-p 0.96, images
+    decoded), one warm-up and one timed call in each mode ({name: sampler
+    arguments}), then, with timed_rounds, four alternated rounds. Returns
+    {mode: ((K1, K2, K7, K8) launches of the timed call, img/s)}."""
+    from controlvar_tpu_torch.config import VQVAEConfig
+    from controlvar_tpu_torch.eval.stepwise import StepwiseVARSampler
+    from controlvar_tpu_torch.models import transformer as tfm
+    from controlvar_tpu_torch.models.var import VARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.ops.attention import (decode_attention, decode_attention_flat,
+                                                    decode_attention_fused)
+    from controlvar_tpu_torch.ops.sample_kernel import sample_top_k_top_p_bisect
+
+    B, D, S = 64, cfg.depth, cfg.num_scales
+    tag = f"VAR-d{D}"
+    kernels = (decode_attention, sample_top_k_top_p_bisect, decode_attention_flat,
+               decode_attention_fused)
+    t0 = time.time()
+    model, vqvae = VARModel(cfg), VQVAE(VQVAEConfig())
+    samplers = {mode: StepwiseVARSampler(model, vqvae, cfg_scale=1.5, top_k=900, top_p=0.96,
+                                         **kw) for mode, kw in modes.items()}
+    flat = tfm.kv_layout(cfg) == "flat"
+    expect = {mode: (0 if flat or s.kv_fused else D * S, S, D * S if flat else 0,
+                     D * S if s.kv_fused else 0) for mode, s in samplers.items()}
+    params = next(iter(samplers.values())).prepare_params(model.init_params(0))
+    vq_params = vqvae.init_params(1)
+    labels = torch.arange(B) % cfg.num_classes
+    print(f"{tag} path: params and ch-160 VQVAE built in {time.time() - t0:.1f} s")
+
+    def call(mode, seed):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = samplers[mode](params, vq_params, labels, torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = tuple(k.launches for k in kernels)
+        if counts != expect[mode]:
+            fail(f"{tag} path, {mode}: launches (K1, K2, K7, K8) = {counts}, expected "
+                 f"{expect[mode]}")
+        if tuple(out.shape) != (B, 256, 256, 3) or not torch.isfinite(out).all():
+            fail(f"{tag} path, {mode}: bad images {tuple(out.shape)}")
+        if float(out.min()) < 0.0 or float(out.max()) > 1.0:
+            fail(f"{tag} path, {mode}: images outside [0, 1]")
+        return dt, counts
+
+    results = {}
+    for mode in modes:
+        dt_warm, _ = call(mode, 40)
+        dt, counts = call(mode, 41)
+        results[mode] = (counts, B / dt)
+        print(f"{tag} path, {mode}: warm-up call {dt_warm:.3f} s; timed call {dt:.4f} s for "
+              f"{B} images = {B / dt:.3f} img/s; launches K1={counts[0]} K2={counts[1]} "
+              f"K7={counts[2]} K8={counts[3]}")
+        if profile:
+            ptag = f"var_d{D}_" + mode.replace("=", "")
+            busy, wall, by_cat = device_profile(torch, lambda: call(mode, 42)[0], ptag)
+            print(f"{ptag} breakdown: profiled call {wall:.2f} ms, device busy {busy:.2f} ms, "
+                  f"idle share {1 - busy / wall:.4f} of the profiled call, "
+                  f"{1 - busy / (dt * 1e3):.4f} of the timed call")
+            for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+                print(f"{ptag} breakdown: {cat}: {ms:.2f} ms")
+    if timed_rounds:
+        alternated(call, list(modes), B, f"{tag} path")
     return results
 
 
 # kernel-name substrings of each device-time category, tested in this order
-CATEGORIES = (("K1 decode attention", ("decode_attention_kernel",)),
+CATEGORIES = (("K1/K8 decode attention", ("decode_attention_kernel",)),
+              ("K7 flat decode attention", ("decode_flat_kernel",)),
               ("K5/K6 prefix decode", ("decode_prefix_kernel",)),
               ("K2 sampling", ("sample_bisect_kernel",)),
               ("K3 flash attention", ("flash_fwd_kernel",)),
@@ -958,7 +1164,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     sys.path.insert(0, ROOT)
-    from controlvar_tpu_torch.config import control_var_config_from_depth
+    from controlvar_tpu_torch.config import control_var_config_from_depth, var_config_from_depth
     from controlvar_tpu_torch.ops import _build
 
     phase("environment")
@@ -972,7 +1178,7 @@ def main() -> None:
     phase("build")
     t = time.time()
     reports = _build.build(["decode_attention", "sample_bisect", "flash_attention",
-                            "decode_prefix"])
+                            "decode_prefix", "decode_flat"])
     print(f"built {sorted(reports) or 'nothing (cached)'} in {time.time() - t:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -991,6 +1197,10 @@ def main() -> None:
     phase("K5 prefix decode and K6 in-place decode vs plain")
     k5, k6 = prefix_phase(torch, cfg24)
     torch.cuda.empty_cache()
+    var12, var13 = var_config_from_depth(12), var_config_from_depth(13)
+    phase("K7 flat decode and K8 fused decode vs plain")
+    k7, k8 = flat_fused_phase(torch, var12, var13)
+    torch.cuda.empty_cache()
     phase("small-input reference")
     reference_phase(torch)
     phase("training path: ControlVAR-d16 train step, B=8")
@@ -1003,15 +1213,25 @@ def main() -> None:
     joint = joint_path_phase(torch, cfg24, profile)
     k5["launches"] = joint["kv_window=2"][0][2]
     k6["launches"] = joint["inplace_decode"][0][3]
+    torch.cuda.empty_cache()
+    phase("VAR path: VAR-d12 class-conditional generation, B=64, stacked and fused caches")
+    v12 = var_path_phase(torch, var12, {"stacked": {}, "kv_fused": dict(kv_fused=True)},
+                         profile, timed_rounds=True)
+    torch.cuda.empty_cache()
+    phase("VAR path: VAR-d13 (13 heads of 64: the flat layout), B=64")
+    v13 = var_path_phase(torch, var13, {"flat": {}}, profile, timed_rounds=False)
+    k8["launches"] = v12["kv_fused"][0][3]
+    k7["launches"] = v13["flat"][0][2]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rates = lambda res: ", ".join(f"{mode} {r[1]:.3f} img/s" for mode, r in res.items())
     print(f"training path: {s_step:.4f} s/step ({8 / s_step:.3f} img/s); serving path: "
-          f"{img_s:.3f} img/s; joint path: " + ", ".join(
-              f"{mode} {r[1]:.3f} img/s" for mode, r in joint.items()) + " on")
+          f"{img_s:.3f} img/s; joint path: {rates(joint)}; VAR-d12: {rates(v12)}; VAR-d13: "
+          f"{rates(v13)} on")
     print(smi)
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in (k1, k2, k3, k4, k5, k6)]}))
+                                  for e in (k1, k2, k3, k4, k5, k6, k7, k8)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -86,6 +86,20 @@ class VARConfig:
     def attn_scale(self) -> float:
         return 1.0 / (self.head_dim ** 0.5) / self.tau
 
+    def scale_seg_len(self, si: int) -> int:
+        """Token count of scale si (pn^2; the port's addition, so that the
+        samplers index VAR and ControlVAR sequences alike)."""
+        return self.patch_nums[si] ** 2
+
+    @property
+    def begin_ends(self) -> Tuple[Tuple[int, int], ...]:
+        out, cur = [], 0
+        for si in range(len(self.patch_nums)):
+            seg = self.scale_seg_len(si)
+            out.append((cur, cur + seg))
+            cur += seg
+        return tuple(out)
+
 
 @dataclasses.dataclass(frozen=True)
 class ControlVARConfig(VARConfig):
@@ -125,15 +139,6 @@ class ControlVARConfig(VARConfig):
         pn = self.patch_nums[si]
         num_sp = 1 if (si != 0 and self.separator) else 0
         return (pn * pn + num_sp) * self.mask_factor
-
-    @property
-    def begin_ends(self) -> Tuple[Tuple[int, int], ...]:
-        out, cur = [], 0
-        for si in range(len(self.patch_nums)):
-            seg = self.scale_seg_len(si)
-            out.append((cur, cur + seg))
-            cur += seg
-        return tuple(out)
 
 
 def _shape_from_depth(depth: int) -> dict:

@@ -1,15 +1,27 @@
-// KV-cached scale-step decode attention for Hopper (sm_90a), bf16, hd = 64.
+// KV-cached scale-step decode attention for Hopper (sm_90a), bf16, hd = 64:
+// K1 over the paired layout's two caches and K8 over the fused cache.
 //
-// Replaces the TPU kernel controlvar_tpu/ops/attention.py:flash_decode_paired
+// K1 replaces the TPU kernel controlvar_tpu/ops/attention.py:flash_decode_paired
 // (_decode_kernel_paired / _decode_kernel_paired_masked): for every (batch,
 // head), out = softmax(q*scale . K^T [mask -> -1e30]) . V over cache rows
-// [0, cur) of one layer of the stacked (depth, B, H, L_max, 64) cache.
+// [0, cur) of one layer of the stacked (depth, B, H, L_max, 64) caches.
+// K8 replaces ops/attention.py:flash_decode_fused (_decode_kernel_fused): the
+// same function over ONE fused (depth, B, H, L_max, 128) buffer whose rows are
+// [k_h | v_h], bitwise equal to K1 on the same rows (the JAX package's own
+// contract). The two share every line of compute and differ only in how a
+// tile reaches shared memory (the template parameter FUSED): K1 copies a
+// 64-row K tile and a 64-row V tile, K8 one 64 x 128 block, 256 contiguous
+// bytes a row, whose first 64 columns land in the K tile and last 64 in the
+// V tile. So the shared tiles, and everything computed from them, are the
+// same bits.
 //
-// What bounds it on the H100: at the final scale (B*R = 64, H = 16, l = 512,
-// cur = 1360) the two products are 1.8e11 FLOP, 0.18 ms at the 989 TFLOP/s
-// bf16 tensor-core peak, against 0.36 GB of K and V, 0.11 ms at 3.35 TB/s:
-// the tensor cores bound it. At the seven small scales (l <= 72) a 64-row q
-// tile is mostly padding and launch cost dominates.
+// What bounds it on the H100: at the d16 serving path's final scale (B*R =
+// 64, H = 16, l = 512, cur = 1360) the two products are 1.8e11 FLOP, 0.18 ms
+// at the 989 TFLOP/s bf16 tensor-core peak, against 0.36 GB of K and V, 0.11
+// ms at 3.35 TB/s: the tensor cores bound it. At VAR-d12's final scale (128
+// CFG rows, 12 heads, l = 256, cur = 680) the bytes do: 0.37 GB, 0.110 ms,
+// against 6.8e10 FLOP, 0.069 ms. At the seven small scales (l <= 72) a 64-row
+// q tile is mostly padding and launch cost dominates.
 //
 // Design: one block of 4 warps per (64-row q tile, batch*head); each warp
 // owns 16 q rows. K/V stream through shared memory in 64-row tiles, read in
@@ -67,6 +79,9 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// FUSED: k is the fused layer base, rows [k_h | v_h] with k's strides; v and
+// its strides are unused
+template <bool FUSED>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B*H, l, HD)
                         const __nv_bfloat16* __restrict__ k,   // layer base
@@ -87,12 +102,23 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B*H, l, HD)
   const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
 
   auto load_tile = [&](int t0, int buf) {
-    for (int i = tid; i < BK * HD / 8; i += THREADS) {
-      const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
-      const bool valid = t0 + r < cur;
-      const long long rr = valid ? t0 + r : 0;
-      cp_async16(&ks[buf][r * LDS + c], kb + rr * k_sr + c, valid);
-      cp_async16(&vs[buf][r * LDS + c], vb + rr * v_sr + c, valid);
+    if constexpr (FUSED) {
+      // one 64 x 2HD block: chunks 0..7 of a row are k_h, 8..15 are v_h
+      for (int i = tid; i < BK * 2 * HD / 8; i += THREADS) {
+        const int r = i / (2 * HD / 8), c = (i % (2 * HD / 8)) * 8;
+        const bool valid = t0 + r < cur;
+        const long long rr = valid ? t0 + r : 0;
+        __nv_bfloat16* dst = c < HD ? &ks[buf][r * LDS + c] : &vs[buf][r * LDS + c - HD];
+        cp_async16(dst, kb + rr * k_sr + c, valid);
+      }
+    } else {
+      for (int i = tid; i < BK * HD / 8; i += THREADS) {
+        const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
+        const bool valid = t0 + r < cur;
+        const long long rr = valid ? t0 + r : 0;
+        cp_async16(&ks[buf][r * LDS + c], kb + rr * k_sr + c, valid);
+        cp_async16(&vs[buf][r * LDS + c], vb + rr * v_sr + c, valid);
+      }
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
@@ -228,9 +254,23 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
                                      long long v_sb, long long v_sh, long long v_sr,
                                      float scale, void* stream) {
   dim3 grid(B * H, (l + BQ - 1) / BQ);
-  decode_attention_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  decode_attention_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (const uint8_t*)mask, (__nv_bfloat16*)out, H, l, cur,
       k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, scale);
+  return (int)cudaGetLastError();
+}
+
+// K8: kv is layer li of the fused cache, rows [k_h | v_h] of 2 * 64 bf16 with
+// (batch, head, row) strides kv_sb, kv_sh, kv_sr.
+extern "C" int decode_fused_bf16(const void* q, const void* kv, const void* mask, void* out,
+                                 int B, int H, int l, int cur,
+                                 long long kv_sb, long long kv_sh, long long kv_sr,
+                                 float scale, void* stream) {
+  dim3 grid(B * H, (l + BQ - 1) / BQ);
+  decode_attention_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)kv, (const __nv_bfloat16*)kv,
+      (const uint8_t*)mask, (__nv_bfloat16*)out, H, l, cur,
+      kv_sb, kv_sh, kv_sr, kv_sb, kv_sh, kv_sr, scale);
   return (int)cudaGetLastError();
 }

@@ -1,26 +1,31 @@
-"""Step-wise ControlVAR samplers: joint (control, image) generation and the
-teacher-forced conditional sampler (multi-scale CFG).
+"""Step-wise samplers: ControlVAR joint (control, image) generation, the
+ControlVAR teacher-forced conditional sampler (multi-scale CFG), and plain
+VAR class-conditional generation.
 
-Port of `controlvar_tpu/eval/stepwise.py:StepwiseJointSampler` and
-`StepwiseCondSampler`. The JAX package compiles one jit per group of
-scales; here the scales are a plain Python loop over eager PyTorch ops and
-the kernels: K2 bisection sampling once per scale, and in every layer
-either K1 (the stacked cache, written then read), K6 (the stacked cache,
-`inplace_decode`: one fused write-and-attend launch) or, in the segmented
-cache mode, K1 at scale 0 and K5 after it.
+Port of `controlvar_tpu/eval/stepwise.py:StepwiseJointSampler`,
+`StepwiseCondSampler` and `StepwiseVARSampler`. The JAX package compiles
+one jit per group of scales; here the scales are a plain Python loop over
+eager PyTorch ops and the kernels: K2 bisection sampling once per scale,
+and in every layer the attention of the cache's layout: K1 (the paired
+stacked cache, written then read), K6 (the paired stacked cache,
+`inplace_decode`: one fused write-and-attend launch), K7 (the flat layout
+of configs with hd != 64 or an odd head count), K8 (the fused cache,
+`kv_fused`) or, in the segmented cache mode, K1 at scale 0 and K5 after it.
 
 Per call: prologue (class and cond-type embeddings, SOS), then for each
 scale: the blocks over all CFG rows, the CFG-combined head, one draw, the
-residual canvas update of both streams and the next scale's input map; then
-the VQVAE decode of the canvases.
+residual canvas update and the next scale's input map; then the VQVAE
+decode of the canvases.
 
-Cache modes: "stacked" preallocates (depth, rows, H, L, hd) caches;
-"seg" keeps one (depth, rows, H, l_s, hd) segment per scale, and with
+Cache modes: "stacked" preallocates the caches of `init_kv_cache`; "seg"
+keeps one (depth, rows, H, l_s, hd) segment per scale, and with
 `kv_window` w only the first segment and the last w (a lossy accelerant,
 the JAX package's `--kv_window`). As in the JAX package, "seg" quietly
 becomes "stacked" when `kv_layout` is not "paired". The JAX package's
-`CONTROLVAR_INPLACE_DECODE` env switch is the `inplace_decode` argument,
-for the stacked mode. Its `groups` (a grouping of jits) has no counterpart.
+`CONTROLVAR_INPLACE_DECODE` and `CONTROLVAR_KV_FUSED` env switches are the
+`inplace_decode` and `kv_fused` arguments, for the stacked mode of a paired
+layout; where the JAX package ignores a switch, the port raises. Its
+`groups` (a grouping of jits) has no counterpart.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ from controlvar_tpu_torch.models import transformer as tfm
 from controlvar_tpu_torch.models.control_var import ControlVARModel
 from controlvar_tpu_torch.models.masks import attn_mask_for_config
 from controlvar_tpu_torch.models.vqvae import VQVAE
-from controlvar_tpu_torch.ops.sampling import gumbel_softmax, sample_top_k_top_p
+from controlvar_tpu_torch.ops.sampling import (gumbel_softmax, sample_top_k_top_p,
+                                               smooth_temperature)
 
 Params = Dict
 
@@ -50,37 +56,49 @@ def _windowed_segs(segs_k, segs_v, w):
     return segs_k[:1] + segs_k[-w:], segs_v[:1] + segs_v[-w:]
 
 
-def _smooth_temperature(si: int, num_scales: int) -> Tuple[float, float]:
-    """more_smooth's (logit factor, gumbel temperature) at scale si."""
-    ratio = si / (num_scales - 1)
-    return 1.0 + ratio, max(0.27 * (1 - ratio * 0.95), 0.005)
-
-
 class _SamplerBase:
-    """What both samplers share: the bf16 weight cast, the cache modes and
+    """What the samplers share: the bf16 weight cast, the cache modes and
     the `indep` mask."""
 
-    model: ControlVARModel
+    model: object  # ControlVARModel or VARModel
     vqvae: VQVAE
     cache_mode: str
     kv_window: Optional[int]
     inplace_decode: bool
+    kv_fused: bool
     device: DeviceLike
     compute_dtype: torch.dtype
 
     def _setup(self):
+        """The ControlVAR samplers' checks, their `indep` mask, then the
+        cache-mode guards."""
         cfg = self.model.cfg
         if cfg.mask_factor != 2:
             raise ValueError("ControlVAR sampling needs mask_factor=2")
         if cfg.separator or cfg.type_pos:
             raise NotImplementedError("separator/type_pos sampling is not ported yet")
         self.device = resolve_device(self.device)
-        self.quant = self.vqvae.quantizer
         self._full_mask = None
         if cfg.indep:
             self._full_mask = torch.from_numpy(attn_mask_for_config(cfg)).to(self.device)
+        self._setup_caches()
+
+    def _setup_caches(self):
+        """The cache-mode guards. Where the JAX package quietly ignores
+        `CONTROLVAR_KV_FUSED=1` (the segmented mode, in-place decode, a flat
+        layout), `kv_fused` raises."""
+        cfg = self.model.cfg
+        self.device = resolve_device(self.device)
+        self.quant = self.vqvae.quantizer
         if self.cache_mode not in ("stacked", "seg"):
             raise ValueError(f"unknown cache_mode {self.cache_mode!r}")
+        if self.kv_fused:
+            if self.cache_mode != "stacked" or self.inplace_decode:
+                raise ValueError("kv_fused applies to cache_mode='stacked' without "
+                                 "inplace_decode")
+            if tfm.kv_layout(cfg) != "paired":
+                raise ValueError("kv_fused needs the paired KV layout (hd = 64, an even "
+                                 "head count)")
         if self.cache_mode == "seg" and tfm.kv_layout(cfg) != "paired":
             self.cache_mode = "stacked"
         if self.kv_window is not None:
@@ -89,8 +107,12 @@ class _SamplerBase:
             if self._full_mask is not None:
                 raise ValueError("kv_window is unsupported with indep masking (mask "
                                  "columns index the full prefix)")
-        if self.inplace_decode and self.cache_mode != "stacked":
-            raise ValueError("inplace_decode applies to cache_mode='stacked'")
+        if self.inplace_decode:
+            if self.cache_mode != "stacked":
+                raise ValueError("inplace_decode applies to cache_mode='stacked'")
+            if tfm.kv_layout(cfg) != "paired":
+                raise ValueError("inplace_decode needs the paired KV layout (hd = 64, an "
+                                 "even head count)")
 
     def prepare_params(self, params: Params) -> Params:
         """Cast the block weights to the compute dtype once; embeddings and
@@ -104,7 +126,7 @@ class _SamplerBase:
         if self.cache_mode == "seg":
             return (), ()
         return tfm.init_kv_cache(self.model.cfg, rows, self.model.cfg.seq_len,
-                                 self.compute_dtype, self.device)
+                                 self.compute_dtype, self.device, fused=self.kv_fused)
 
     def _blocks(self, params, si, next_map, cond, cache_k, cache_v):
         """The blocks over scale si's input map in the cache mode; returns
@@ -144,6 +166,7 @@ class StepwiseJointSampler(_SamplerBase):
     cache_mode: str = "stacked"
     kv_window: Optional[int] = None
     inplace_decode: bool = False
+    kv_fused: bool = False
     device: DeviceLike = None
     compute_dtype: torch.dtype = torch.bfloat16
 
@@ -182,7 +205,7 @@ class StepwiseJointSampler(_SamplerBase):
         ids = sample_top_k_top_p(logits, self.top_k, self.top_p, generator)
         l = pn * pn
         if self.more_smooth:  # gumbel soft embeddings of both streams
-            factor, tau = _smooth_temperature(si, SN)
+            factor, tau = smooth_temperature(si, SN)
             soft = gumbel_softmax(logits * factor, tau, generator=generator)
             h_all = soft @ vq_params["quantize"]["embedding"].float()
             h_c, h_i = h_all[:, :l], h_all[:, l:]
@@ -247,6 +270,7 @@ class StepwiseCondSampler(_SamplerBase):
     cache_mode: str = "stacked"
     kv_window: Optional[int] = None
     inplace_decode: bool = False
+    kv_fused: bool = False
     device: DeviceLike = None
     compute_dtype: torch.dtype = torch.bfloat16
 
@@ -303,7 +327,7 @@ class StepwiseCondSampler(_SamplerBase):
             ids_a = torch.cat([a_sampled, forced], dim=1)
         ids = torch.cat([ids_a, b_ids], dim=0)                    # (2B, 2l)
         if self.more_smooth:  # gumbel soft embeddings of both groups' streams
-            factor, tau = _smooth_temperature(si, SN)
+            factor, tau = smooth_temperature(si, SN)
             soft = gumbel_softmax(combined.repeat(2, 1, 1) * factor, tau, generator=generator)
             h_all = soft @ vq_params["quantize"]["embedding"].float()
             h_c, h_i = h_all[:, :l], h_all[:, l:]
@@ -359,3 +383,73 @@ class StepwiseCondSampler(_SamplerBase):
         if not decode_img:
             return fh_c[:B], fh_i[:B]
         return self._epilogue(vq_params, fh_c, fh_i)
+
+
+@dataclasses.dataclass
+class StepwiseVARSampler(_SamplerBase):
+    """Plain-VAR class-conditional CFG generation: two CFG branches [cond |
+    uncond] over B rows each, one token stream, one canvas (the JAX
+    package's `StepwiseVARSampler`, with `more_smooth` from its
+    `VARModel.sample_cfg`)."""
+
+    model: object  # VARModel
+    vqvae: VQVAE
+    cfg_scale: float = 1.5
+    top_k: int = 900
+    top_p: float = 0.96
+    more_smooth: bool = False
+    cache_mode: str = "stacked"
+    kv_window: Optional[int] = None
+    inplace_decode: bool = False
+    kv_fused: bool = False
+    device: DeviceLike = None
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        self._full_mask = None  # plain VAR has no indep masking
+        self._setup_caches()
+
+    def _step(self, si, params, vq_params, cond, next_map, cache_k, cache_v, f_hat,
+              generator):
+        cfg = self.model.cfg
+        pns, SN = cfg.patch_nums, cfg.num_scales
+        pn = pns[si]
+        B = next_map.shape[0] // 2
+        z = self.vqvae.cfg.z_channels
+        x, cache_k, cache_v = self._blocks(params, si, next_map, cond, cache_k, cache_v)
+        t = self.cfg_scale * si / (SN - 1)
+        logits = tfm.head_logits_cfg(params, x, cond, cfg, (1.0 + t, -t))
+        ids = sample_top_k_top_p(logits, self.top_k, self.top_p, generator)
+        if self.more_smooth:  # gumbel soft embeddings
+            factor, tau = smooth_temperature(si, SN)
+            soft = gumbel_softmax(logits * factor, tau, generator=generator)
+            h = soft @ vq_params["quantize"]["embedding"].float()
+        else:
+            h = self.quant.embed(vq_params["quantize"], ids)
+        f_hat, nxt = self.quant.next_ar_input(vq_params["quantize"], si, f_hat,
+                                              h.reshape(B, pn, pn, z))
+        if si != SN - 1:
+            lo, hi = cfg.begin_ends[si + 1]
+            nm = self.model._word_embed(params, nxt.reshape(B, hi - lo, z))
+            next_map = (nm + self.model._lvl_pos(params)[:, lo:hi]).repeat(2, 1, 1)
+        return next_map, cache_k, cache_v, f_hat
+
+    @torch.no_grad()
+    def __call__(self, params, vq_params, labels, generator: torch.Generator,
+                 decode_img: bool = True):
+        """labels: (B,) class ids. generator: a CPU torch.Generator, the
+        source of every draw. Returns the images (B, H, W, 3) in [0, 1], or
+        the final f_hat with decode_img=False."""
+        cfg = self.model.cfg
+        pns = cfg.patch_nums
+        B = labels.shape[0]
+        labels = labels.to(self.device)
+        cond = params["class_emb"][torch.cat([labels, torch.full_like(labels, cfg.num_classes)])]
+        next_map = (cond[:, None, :] + params["pos_start"]
+                    + self.model._lvl_pos(params)[:, : cfg.first_l])
+        cache_k, cache_v = self._init_caches(2 * B)
+        f_hat = torch.zeros(B, pns[-1], pns[-1], self.vqvae.cfg.z_channels, device=self.device)
+        for si in range(len(pns)):
+            next_map, cache_k, cache_v, f_hat = self._step(
+                si, params, vq_params, cond, next_map, cache_k, cache_v, f_hat, generator)
+        return self._decode(vq_params, f_hat) if decode_img else f_hat

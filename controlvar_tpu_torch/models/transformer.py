@@ -12,13 +12,17 @@ over views of the stacked params, with attention through `flash_mha`
 path, and, when training, per-layer recompute (`torch.utils.checkpoint`,
 the JAX package's default `full` remat policy).
 
-Decode keeps a preallocated (depth, B, H, L_max, hd) K/V cache per stream,
-written in place: each layer-step writes its fresh rows [pos, pos + l) and
-attention (ops/attention.decode_attention, kernel K1 on the GPU) reads rows
-[0, pos + l) of that layer through strides, with no copy of the prefix; or
-one K6 launch per layer-step does both (`inplace`). The segmented mode
-(`blocks_decode_seg`) keeps one (depth, B, H, l_s, hd) segment per scale
-instead, and attends over [kept segments | fresh rows] with K5.
+Decode keeps a preallocated K/V cache per stream, written in place: each
+layer-step writes its fresh rows [pos, pos + l) and attention reads rows
+[0, pos + l) of that layer through strides, with no copy of the prefix. The
+cache's layout follows the JAX package's: paired (depth, B, H, L_max, hd)
+K and V for hd = 64 and an even head count, read by K1 (or written and read
+by one K6 launch per layer-step, `inplace`); flat, transposed (depth, B, H,
+hd, L) K^T and V^T otherwise, read by K7; or, on request for a paired
+config, one fused (depth, B, H, L_max, 2 hd) buffer, read by K8. The
+segmented mode (`blocks_decode_seg`) keeps one (depth, B, H, l_s, hd)
+segment per scale instead, and attends over [kept segments | fresh rows]
+with K5.
 
 Stacked params (leading dim = depth), dense kernels as (in, out):
   qkv_kernel (D, C, 3C)   q_bias/v_bias (D, C)
@@ -35,7 +39,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from controlvar_tpu_torch.config import VARConfig
-from controlvar_tpu_torch.ops.attention import (decode_attention, decode_attention_inplace,
+from controlvar_tpu_torch.ops.attention import (decode_attention, decode_attention_flat,
+                                                decode_attention_fused, decode_attention_inplace,
                                                 decode_attention_prefix, flash_mha)
 
 Params = Dict
@@ -223,21 +228,37 @@ def blocks_forward(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConf
     return x
 
 
-def init_kv_cache(cfg: VARConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-                  device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Zeroed K and V caches, each (depth, B, H, max_len, hd)."""
-    shape = (cfg.depth, batch, cfg.num_heads, max_len, cfg.head_dim)
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
-
-
 def kv_layout(cfg: VARConfig) -> str:
     """The JAX package's cache-layout rule (`controlvar_tpu/models/
     transformer.py:kv_layout`): 'paired' for hd = 64 and an even head count,
-    else 'flat'. The port keeps one per-head cache layout; the rule decides,
-    as it does in the JAX package, whether a sampler may take the segmented
-    cache mode."""
+    else 'flat'. It picks the stacked cache's layout (`init_kv_cache`) and,
+    as in the JAX package, whether a sampler may take the segmented mode."""
     return "paired" if (cfg.head_dim == 64 and cfg.num_heads % 2 == 0) else "flat"
+
+
+def kv_fused(cfg: VARConfig, requested: bool) -> bool:
+    """The JAX package's `kv_fused` rule without its environment read: the
+    fused cache layout applies to a paired-layout config only."""
+    return requested and kv_layout(cfg) == "paired"
+
+
+def init_kv_cache(cfg: VARConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                  device="cpu", fused: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed K and V caches in the layout `blocks_decode` reads, one head a
+    row (the JAX package pairs two heads a row for the TPU's 128 lanes):
+      paired: K and V, each (depth, B, H, max_len, hd);
+      flat:   K^T and V^T, each (depth, B, H, hd, L), L = max_len rounded up
+              to a multiple of 8 so that every row starts 16-byte aligned;
+      fused (`kv_fused(cfg, fused)`): ONE (depth, B, H, max_len, 2 hd)
+              buffer of rows [k_h | v_h] and an empty placeholder for V."""
+    D, H, hd = cfg.depth, cfg.num_heads, cfg.head_dim
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    if kv_fused(cfg, fused):
+        return zeros(D, batch, H, max_len, 2 * hd), zeros(0)
+    if kv_layout(cfg) == "flat":
+        L = -(-max_len // 8) * 8
+        return zeros(D, batch, H, hd, L), zeros(D, batch, H, hd, L)
+    return zeros(D, batch, H, max_len, hd), zeros(D, batch, H, max_len, hd)
 
 
 def blocks_decode(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfig,
@@ -248,21 +269,35 @@ def blocks_decode(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfi
 
     x: (B, l, C) tokens of the current scale; pos: first cache row they take.
     mask_slice: optional (l, pos + l) bool mask; None = attend to everything
-    cached. The caches are updated in place and returned. Each layer writes
-    its fresh rows, then attends over rows [0, pos + l) (K1); with inplace
-    and no mask, one K6 launch per layer does both (the JAX package's
+    cached. The caches (`init_kv_cache`) are updated in place and returned.
+    Each layer writes its fresh rows, then attends over rows [0, pos + l),
+    by the caches' layout: the fused buffer (an empty V placeholder) through
+    K8, the flat layout (`kv_layout`) through K7 after a transposed write,
+    the paired layout through K1, or, with inplace and no mask, one K6
+    launch per layer that does both (the JAX package's
     CONTROLVAR_INPLACE_DECODE=1; a masked step keeps the split path there
-    too).
+    too). inplace needs the paired layout.
     """
     l = x.shape[1]
     cur = pos + l
     ada_all = _ada_all_layers(bp, F.silu(cond.float()), cfg)
     scale = 1.0 if cfg.cos_attn else cfg.attn_scale
-    fused = inplace and mask_slice is None
+    fused = cache_v.dim() == 1
+    flat = not fused and kv_layout(cfg) == "flat"
+    if inplace and (fused or flat):
+        raise ValueError("inplace decode needs the paired, unfused cache layout")
+    inplace = inplace and mask_slice is None
     for li in range(cfg.depth):
         def attn_fn(q, k, v, li=li):
-            if fused:
+            if inplace:
                 return decode_attention_inplace(q, cache_k, cache_v, k, v, li, pos, scale)
+            if fused:
+                cache_k[li, :, :, pos:cur] = torch.cat([k, v], dim=-1)
+                return decode_attention_fused(q, cache_k, li, cur, scale, mask_slice)
+            if flat:
+                cache_k[li, ..., pos:cur] = k.transpose(2, 3)
+                cache_v[li, ..., pos:cur] = v.transpose(2, 3)
+                return decode_attention_flat(q, cache_k, cache_v, li, cur, scale, mask_slice)
             cache_k[li, :, :, pos:cur] = k
             cache_v[li, :, :, pos:cur] = v
             return decode_attention(q, cache_k, cache_v, li, cur, scale, mask_slice)

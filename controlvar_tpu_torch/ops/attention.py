@@ -1,6 +1,7 @@
-"""Attention kernels of the port: decode attention (K1), decode over
-[cache prefix | fresh rows] (K5) and its in-place variant (K6), and the
-training flash attention forward (K3) and backward (K4).
+"""Attention kernels of the port: decode attention over the paired (K1),
+flat (K7) and fused (K8) cache layouts, decode over [cache prefix | fresh
+rows] (K5) and its in-place variant (K6), and the training flash attention
+forward (K3) and backward (K4).
 
 `decode_attention` is the port of `controlvar_tpu/ops/attention.py:
 flash_decode_paired`: for one layer `li` of the (depth, B, H, L_max, hd)
@@ -10,6 +11,15 @@ cache it computes softmax(q*scale . K^T [mask -> -1e30]) . V over rows
 on a CPU tensor it takes `decode_attention_plain`, the einsum path of the JAX
 package's `_mha_decode_paired` on the per-head layout, with the TPU kernel's
 fp32 scores.
+
+`decode_attention_flat` (K7, the port of `flash_decode`) computes the same
+function over the flat, transposed (depth, B, H, hd, L_max) cache of
+configs whose head dim is not 64 or whose head count is odd, with the
+kernel `csrc/decode_flat.cu` (instances for hd = 16, 32, ..., 128);
+`decode_attention_fused` (K8, the port of `flash_decode_fused`) over one
+fused (depth, B, H, L_max, 2 hd) cache with rows [k_h | v_h], with the
+second entry of `csrc/decode_attention.cu`, bit for bit K1's output. Their
+plain versions are K1's on the transposed views and on the column halves.
 
 `decode_attention_prefix` (K5, the port of `flash_decode_prefix`) attends
 over a prefix read through strides and the scale's fresh rows, for the
@@ -80,6 +90,36 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
+def _check_decode_q(what: str, q: torch.Tensor, head_dims) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if q.dim() != 4 or q.dtype != torch.bfloat16 or q.shape[3] not in head_dims:
+        raise ValueError(f"{what}: the kernel takes (B, H, l, hd) bf16 q with hd in "
+                         f"{head_dims}, got {q.dtype} {tuple(q.shape)}")
+
+
+def _check_cache(what: str, name: str, t: torch.Tensor, shape, device) -> None:
+    """A 5-D bf16 (depth, *shape, ...) cache on `device` whose rows are
+    dense and start 16-byte aligned."""
+    if (t.device != device or t.dtype != torch.bfloat16 or t.dim() != 5
+            or tuple(t.shape[1:1 + len(shape)]) != shape):
+        dims = ", ".join(map(str, shape))
+        raise ValueError(f"{what}: {name} must be a 5-D bf16 (depth, {dims}, ...) tensor on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if t.stride(4) != 1 or any(s % 8 for s in t.stride()[:4]) or t.data_ptr() % 16:
+        raise ValueError(f"{what}: {name} rows must be dense and 16-byte aligned, got "
+                         f"strides {t.stride()}")
+
+
+def _check_mask(what: str, mask: Optional[torch.Tensor], l: int, cur: int, device):
+    if mask is None:
+        return None
+    if mask.shape != (l, cur) or mask.dtype != torch.bool or mask.device != device:
+        raise ValueError(f"{what}: mask must be ({l}, {cur}) bool on {device}, got "
+                         f"{mask.dtype} {tuple(mask.shape)}")
+    return mask.contiguous()
+
+
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
                      li: int, cur: int, scale: float,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -88,29 +128,19 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tens
     if q.device.type == "cpu":
         return decode_attention_plain(q, cache_k[li, :, :, :cur],
                                       cache_v[li, :, :, :cur], scale, mask)
+    what = "decode_attention"
+    _check_decode_q(what, q, (64,))
     B, H, l, hd = q.shape
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: unsupported device {q.device}")
     for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
-        if t.device != q.device or t.dtype != torch.bfloat16 or t.dim() != 5:
-            raise ValueError(f"decode_attention: {name} must be a 5-D bf16 "
-                             f"tensor on {q.device}, got {t.dtype} {tuple(t.shape)}")
-        if t.shape[1:3] != (B, H) or t.shape[4] != hd or t.stride(4) != 1:
-            raise ValueError(f"decode_attention: {name} shape {tuple(t.shape)} "
-                             f"does not fit q {tuple(q.shape)}")
-        if any(s % 8 for s in t.stride()[1:4]) or t.data_ptr() % 16:
-            raise ValueError(f"decode_attention: {name} rows must be 16-byte aligned")
-    if q.dtype != torch.bfloat16 or hd != 64:
-        raise ValueError(f"decode_attention: the kernel takes bf16 q with "
-                         f"hd=64, got {q.dtype} hd={hd}")
-    if not 0 <= li < cache_k.shape[0] or not 0 < cur <= cache_k.shape[3]:
-        raise ValueError(f"decode_attention: li={li}, cur={cur} out of range")
+        _check_cache(what, name, t, (B, H), q.device)
+        if t.shape[4] != hd:
+            raise ValueError(f"{what}: {name} shape {tuple(t.shape)} does not fit q "
+                             f"{tuple(q.shape)}")
+    if not 0 <= li < cache_k.shape[0] or not 0 < cur <= min(cache_k.shape[3],
+                                                             cache_v.shape[3]):
+        raise ValueError(f"{what}: li={li}, cur={cur} out of range")
+    mask = _check_mask(what, mask, l, cur, q.device)
     q = q.contiguous()
-    if mask is not None:
-        if mask.shape != (l, cur) or mask.dtype != torch.bool or mask.device != q.device:
-            raise ValueError(f"decode_attention: mask must be ({l}, {cur}) bool "
-                             f"on {q.device}, got {mask.dtype} {tuple(mask.shape)}")
-        mask = mask.contiguous()
     out = torch.empty_like(q)
     kl, vl = cache_k[li], cache_v[li]
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -119,12 +149,110 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tens
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         B, H, l, cur, *kl.stride()[:3], *vl.stride()[:3],
         float(_scale_in(torch.bfloat16, scale)), stream)
-    _build.check(err, "decode_attention launch")
+    _build.check(err, f"{what} launch")
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# decode over the flat (K7) and the fused (K8) cache layouts
+# ---------------------------------------------------------------------------
+
+FLAT_HEAD_DIMS = tuple(range(16, 129, 16))  # K7's instances
+_FLAT_ARGTYPES = [ctypes.c_int] + [_C] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6 + [
+    ctypes.c_float, _C]
+_FUSED_ARGTYPES = [_C] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_float, _C]
+
+
+def decode_attention_flat_plain(q: torch.Tensor, k_t: torch.Tensor, v_t: torch.Tensor,
+                                scale: float, mask: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """K7's plain version: (B, H, l, hd) q over transposed (B, H, hd, Lk) K
+    and V, with the TPU kernel's rounding points (q*scale rounded to q's
+    dtype, fp32 scores, p normalised, then rounded, before PV), which are
+    K1's: `decode_attention_plain` on the transposed views."""
+    return decode_attention_plain(q, k_t.transpose(2, 3), v_t.transpose(2, 3), scale, mask)
+
+
+def decode_attention_flat(q: torch.Tensor, cache_kt: torch.Tensor, cache_vt: torch.Tensor,
+                          li: int, cur: int, scale: float,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of q (B, H, l, hd) over keys [0, cur) of layer `li` of the
+    flat, transposed caches (depth, B, H, hd, L_max) (kernel K7; hd a
+    multiple of 16 up to 128 on the card); mask: optional (l, cur) bool.
+    The kernel reads the caches in place through their strides."""
+    if q.device.type == "cpu":
+        return decode_attention_flat_plain(q, cache_kt[li, ..., :cur], cache_vt[li, ..., :cur],
+                                           scale, mask)
+    what = "decode_attention_flat"
+    _check_decode_q(what, q, FLAT_HEAD_DIMS)
+    B, H, l, hd = q.shape
+    for name, t in (("cache_kt", cache_kt), ("cache_vt", cache_vt)):
+        _check_cache(what, name, t, (B, H, hd), q.device)
+    if not 0 <= li < cache_kt.shape[0] or not 0 < cur <= min(cache_kt.shape[4],
+                                                             cache_vt.shape[4]):
+        raise ValueError(f"{what}: li={li}, cur={cur} out of range")
+    mask = _check_mask(what, mask, l, cur, q.device)
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    kl, vl = cache_kt[li], cache_vt[li]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _entry("decode_flat", "decode_flat_bf16", _FLAT_ARGTYPES)(
+        hd, q.data_ptr(), kl.data_ptr(), vl.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        B, H, l, cur, *kl.stride()[:3], *vl.stride()[:3],
+        float(_scale_in(torch.bfloat16, scale)), stream)
+    _build.check(err, f"{what} launch")
+    decode_attention_flat.launches += 1
+    return out
+
+
+decode_attention_flat.launches = 0
+
+
+def decode_attention_fused_plain(q: torch.Tensor, kv: torch.Tensor, scale: float,
+                                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K8's plain version: q (B, H, l, hd) over fused (B, H, Lk, 2 hd) rows
+    [k_h | v_h], as K1's plain version on the two column halves (the JAX
+    package's `_mha_decode_fused` defers to its paired path the same way)."""
+    hd = q.shape[3]
+    return decode_attention_plain(q, kv[..., :hd], kv[..., hd:], scale, mask)
+
+
+def decode_attention_fused(q: torch.Tensor, cache_kv: torch.Tensor, li: int, cur: int,
+                           scale: float, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of q (B, H, l, 64) over rows [0, cur) of layer `li` of the
+    fused cache (depth, B, H, L_max, 128), rows [k_h | v_h] (kernel K8, equal
+    bit for bit to K1 over the same rows); mask: optional (l, cur) bool."""
+    if q.device.type == "cpu":
+        return decode_attention_fused_plain(q, cache_kv[li, :, :, :cur], scale, mask)
+    what = "decode_attention_fused"
+    _check_decode_q(what, q, (64,))
+    B, H, l, hd = q.shape
+    _check_cache(what, "cache_kv", cache_kv, (B, H), q.device)
+    if cache_kv.shape[4] != 2 * hd:
+        raise ValueError(f"{what}: cache_kv rows must be [k | v] of {2 * hd}, got "
+                         f"{tuple(cache_kv.shape)}")
+    if not 0 <= li < cache_kv.shape[0] or not 0 < cur <= cache_kv.shape[3]:
+        raise ValueError(f"{what}: li={li}, cur={cur} out of range")
+    mask = _check_mask(what, mask, l, cur, q.device)
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    kv = cache_kv[li]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _entry("decode_attention", "decode_fused_bf16", _FUSED_ARGTYPES)(
+        q.data_ptr(), kv.data_ptr(), None if mask is None else mask.data_ptr(),
+        out.data_ptr(), B, H, l, cur, *kv.stride()[:3],
+        float(_scale_in(torch.bfloat16, scale)), stream)
+    _build.check(err, f"{what} launch")
+    decode_attention_fused.launches += 1
+    return out
+
+
+decode_attention_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------

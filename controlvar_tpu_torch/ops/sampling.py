@@ -23,7 +23,7 @@ from controlvar_tpu_torch.ops.sample_kernel import (NEG_INF, gumbel_noise,
                                                     sample_top_k_top_p_bisect)
 
 __all__ = ["METHODS", "NEG_INF", "filtered_sorted_logits", "gumbel_softmax",
-           "sample_top_k_top_p", "top_k_top_p_filter"]
+           "sample_top_k_top_p", "smooth_temperature", "top_k_top_p_filter"]
 
 METHODS = ("auto", "sort", "bisect", "bisect_prng")
 
@@ -112,3 +112,9 @@ def gumbel_softmax(logits: torch.Tensor, tau: float, hard: bool = False,
     idx = torch.argmax(y_soft, dim=-1)
     y_hard = torch.nn.functional.one_hot(idx, logits.shape[-1]).to(y_soft.dtype)
     return y_hard - y_soft.detach() + y_soft
+
+
+def smooth_temperature(si: int, num_scales: int) -> Tuple[float, float]:
+    """more_smooth's (logit factor, gumbel temperature) at scale si."""
+    ratio = si / (num_scales - 1)
+    return 1.0 + ratio, max(0.27 * (1 - ratio * 0.95), 0.005)

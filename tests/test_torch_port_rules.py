@@ -30,7 +30,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_port_has_sources_and_kernels():
     assert len(PORT_FILES) > 10
     assert sorted(p.name for p in (ROOT / "controlvar_tpu_torch" / "csrc").glob("*.cu")) == [
-        "decode_attention.cu", "decode_prefix.cu", "flash_attention.cu", "sample_bisect.cu"]
+        "decode_attention.cu", "decode_flat.cu", "decode_prefix.cu", "flash_attention.cu",
+        "sample_bisect.cu"]
 
 
 @pytest.fixture
@@ -42,8 +43,12 @@ def test_entry_points_raise_without_cuda_and_device(no_cuda):
     from controlvar_tpu_torch.ckpt.convert import from_jax_params
     from controlvar_tpu_torch.config import ControlVARConfig, VQVAEConfig
     from controlvar_tpu_torch.eval.harness import SamplingHarness
-    from controlvar_tpu_torch.eval.stepwise import StepwiseCondSampler, StepwiseJointSampler
+    from controlvar_tpu_torch.config import VARConfig
+    from controlvar_tpu_torch.eval.stepwise import (StepwiseCondSampler, StepwiseJointSampler,
+                                                    StepwiseVARSampler)
+    from controlvar_tpu_torch.models import class_embedder
     from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.var import VARModel
     from controlvar_tpu_torch.models.vqvae import VQVAE
 
     cfg = ControlVARConfig(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2),
@@ -63,6 +68,13 @@ def test_entry_points_raise_without_cuda_and_device(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         StepwiseJointSampler(model, vqvae)
     assert SamplingHarness(model, vqvae, device="cpu").device == torch.device("cpu")
+    var_cfg = VARConfig(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2), vocab_size=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VARModel(var_cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StepwiseVARSampler(VARModel(var_cfg, device="cpu"), vqvae)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        class_embedder.init_params(torch.Generator(), 10, 8)
 
 
 def test_kernel_wrappers_reject_other_devices():
@@ -87,6 +99,8 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
     csrc = ROOT / "controlvar_tpu_torch" / "csrc"
     assert "ops/attention.py:flash_decode_paired" in (csrc / "decode_attention.cu").read_text()
     assert "ops/sample_kernel.py:" in (csrc / "sample_bisect.cu").read_text()
+    assert "ops/attention.py:flash_decode_fused" in (csrc / "decode_attention.cu").read_text()
+    assert "ops/attention.py:flash_decode\n" in (csrc / "decode_flat.cu").read_text()
     prefix = (csrc / "decode_prefix.cu").read_text()
     for name in ("flash_decode_prefix", "_prefix_kernel_paired", "flash_decode_inplace",
                  "_inplace_kernel"):
