@@ -18,16 +18,19 @@ Run from the root of a checkout. Phases, each fatal on failure:
      with q, k, v and dO strided as the training path gives them, and at a
      small ragged shape under a causal mask, with their times, the plain
      versions' and SDPA's (forward, and its autograd backward);
-  6. K5 prefix decode and K6 in-place decode vs their plain versions at the
-     d24 joint path's final scale (16 CFG rows, 24 heads, l = 512) over the
-     full prefix (pos = 848) and the kv_window=2 one (pos = 540), and at a
-     small ragged masked shape; K6 at the final scale and at pos == 0, with a
-     check that it changed exactly rows [pos, pos + l) of layer li; all on
-     the strided views the decode paths give them; with their times, the
-     plain versions' and SDPA's over the concatenated K/V;
+  6. K5 prefix decode vs its plain version at the d24 joint path's final
+     scale (16 CFG rows, 24 heads, l = 512) over the full prefix (pos =
+     848) and the kv_window=2 one (pos = 540), and at a small ragged masked
+     shape; K6 in-place decode vs its plain version at every scale's (pos,
+     l) of the joint path (scale 0 is pos == 0), each with a check that it
+     changed exactly rows [pos, pos + l) of layer li; all on the strided
+     views the decode paths give them; with their times, the plain
+     versions' and SDPA's over the concatenated K/V, K6's and SDPA's at
+     every scale and summed over one call (x 24 layers);
   7. K7 flat decode vs its plain version at every scale's (l, cur) of the
      VAR-d13 path (128 CFG rows, 13 heads of 64, L = 680, the flat layout)
-     and at hd 32, 96 and 128 on a ragged masked shape; K8 fused decode
+     and at hd 32, 96 and 128 on a ragged masked shape, its and SDPA's
+     times at every scale and summed over one call (x 13); K8 fused decode
      bit-equal to K1 on the same rows and vs its plain version at every
      scale of the VAR-d12 path (128 CFG rows, 12 heads), masked and
      unmasked; all on the cache-layer views the decode paths give them and
@@ -79,6 +82,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -446,6 +450,7 @@ def prefix_phase(torch, cfg):
     from controlvar_tpu_torch.ops.attention import (
         decode_attention_inplace, decode_attention_inplace_plain, decode_attention_prefix,
         decode_attention_prefix_plain)
+    from controlvar_tpu_torch.probes.decode_scales import graph_ms
 
     g = torch.Generator(device="cuda").manual_seed(7)
     dev, bf, hd, scale = "cuda", torch.bfloat16, cfg.head_dim, cfg.attn_scale
@@ -506,13 +511,16 @@ def prefix_phase(torch, cfg):
                          randn(2, 3, 83, hd).to(bf), randn(2, 3, 83, hd).to(bf), ks, vs, mask))
 
     # K6 on the stacked path's views: the (depth, R, H, L, hd) caches and the
-    # fresh k, v straight from the fused QKV
+    # fresh k, v straight from the fused QKV; at every scale of the joint
+    # path (scale 0 is pos == 0), over layer 0 or 1 in turn
     ck, cv = (randn(2, R, H, cfg.seq_len, hd).to(bf) for _ in range(2))
-    q6, kn6, vn6 = fresh(R, H, l)
-    errs6.append(k6_case(f"d24 final scale (pos={full_pos}, l={l})", q6, ck, cv, kn6, vn6,
-                         1, full_pos))
-    q0, kn0, vn0 = fresh(R, H, cfg.scale_seg_len(0))
-    errs6.append(k6_case("d24 scale 0 (pos=0, l=2)", q0, ck, cv, kn0, vn0, 0, 0))
+    scales6 = []
+    for si, (lo, hi) in enumerate(cfg.begin_ends):
+        qs, kns, vns = fresh(R, H, hi - lo)
+        errs6.append(k6_case(f"d24 scale {si} (pos={lo}, l={hi - lo})", qs, ck, cv, kns, vns,
+                             si % 2, lo))
+        scales6.append((lo, qs, kns, vns))
+    q6, kn6, vn6 = scales6[-1][1:]
 
     # times at the final scale
     def lib_ms(q, pk, pv, kn, vn):
@@ -533,10 +541,23 @@ def prefix_phase(torch, cfg):
         print(f"K5 d24 final scale, {pname}: kernel {times[pname][0]:.4f} ms, plain "
               f"{times[pname][1]:.4f} ms, sdpa over the concatenated K/V "
               f"{times[pname][2]:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # K6 and SDPA (the attention alone) at every scale, device time from
+    # CUDA graphs, and over one call: each scale's time times the depth
+    per_scale = []
+    for pos, qs, kns, vns in scales6:
+        kk, vv = torch.cat([ck[1, :, :, :pos], kns], 2), torch.cat([cv[1, :, :, :pos], vns], 2)
+        per_scale.append((
+            graph_ms(lambda: decode_attention_inplace(qs, ck, cv, kns, vns, 1, pos, scale)),
+            graph_ms(lambda: F.scaled_dot_product_attention(qs, kk, vv, scale=scale))))
+        print(f"K6 per scale, pos={pos} l={qs.shape[2]}: kernel {per_scale[-1][0]:.4f} ms, "
+              f"sdpa {per_scale[-1][1]:.4f} ms (device time, CUDA graph)")
+    per_call = [cfg.depth * sum(col) for col in zip(*per_scale)]
+    print(f"K6 per joint call ({cfg.depth} layers x {len(per_scale)} scales): kernel "
+          f"{per_call[0]:.4f} ms, sdpa {per_call[1]:.4f} ms")
     ms6 = cuda_ms(lambda: decode_attention_inplace(q6, ck, cv, kn6, vn6, 1, full_pos, scale), 20)
+    lib6 = lib_ms(q6, ck[1, :, :, :full_pos], cv[1, :, :, :full_pos], kn6, vn6)
     plain6 = cuda_ms(lambda: decode_attention_inplace_plain(q6, ck, cv, kn6, vn6, 1, full_pos,
                                                             scale), 3)
-    lib6 = lib_ms(q6, ck[1, :, :, :full_pos], cv[1, :, :, :full_pos], kn6, vn6)
     b6 = bounds(full_pos, True)
     print(f"K6 d24 final scale: kernel {ms6:.4f} ms, plain {plain6:.4f} ms, sdpa of the "
           f"attention alone {lib6:.4f} ms, bound {b6[0]:.4f} ms ({b6[1]})")
@@ -562,6 +583,7 @@ def flat_fused_phase(torch, cfg12, cfg13):
     from controlvar_tpu_torch.ops.attention import (
         decode_attention, decode_attention_flat, decode_attention_flat_plain,
         decode_attention_fused, decode_attention_fused_plain)
+    from controlvar_tpu_torch.probes.decode_scales import graph_ms
 
     g = torch.Generator(device="cuda").manual_seed(9)
     dev, bf, R_B = "cuda", torch.bfloat16, 128       # B = 64 CFG pairs
@@ -612,6 +634,21 @@ def flat_fused_phase(torch, cfg12, cfg13):
         mag = decode_attention_flat_plain(q, kk, vv.abs(), sc, mask)
         errs7.append(check_close(f"K7 ragged (2, 3, {l}, {hd_r}), cur={cur}, masked", got, want,
                                  mag))
+    # K7 and SDPA (over contiguous K/V made outside the time) at every scale,
+    # device time from CUDA graphs, and over one call: each scale's time
+    # times the depth
+    per_scale = []
+    for lo, cur in cfg13.begin_ends:
+        q = fresh_q(R_B, H, cur - lo, hd)
+        k_c, v_c = (c[1, ..., :cur].transpose(2, 3).contiguous() for c in (ck, cv))
+        per_scale.append((
+            graph_ms(lambda: decode_attention_flat(q, ck, cv, 1, cur, scale)),
+            graph_ms(lambda: F.scaled_dot_product_attention(q, k_c, v_c, scale=scale))))
+        print(f"K7 per scale, l={cur - lo} cur={cur}: kernel {per_scale[-1][0]:.4f} ms, "
+              f"sdpa {per_scale[-1][1]:.4f} ms (device time, CUDA graph)")
+    per_call = [cfg13.depth * sum(col) for col in zip(*per_scale)]
+    print(f"K7 per VAR-d13 call ({cfg13.depth} layers x {len(per_scale)} scales): kernel "
+          f"{per_call[0]:.4f} ms, sdpa {per_call[1]:.4f} ms")
     q = fresh_q(R_B, H, L - cfg13.begin_ends[-1][0], hd)
     kk, vv = ck[1, ..., :L], cv[1, ..., :L]
     k_c, v_c = kk.transpose(2, 3).contiguous(), vv.transpose(2, 3).contiguous()
@@ -1086,7 +1123,8 @@ def var_path_phase(torch, cfg, modes, profile: bool, timed_rounds: bool):
 # kernel-name substrings of each device-time category, tested in this order
 CATEGORIES = (("K1/K8 decode attention", ("decode_attention_kernel",)),
               ("K7 flat decode attention", ("decode_flat_kernel",)),
-              ("K5/K6 prefix decode", ("decode_prefix_kernel",)),
+              ("K5 prefix decode", ("decode_prefix_kernel",)),
+              ("K6 in-place decode", ("decode_inplace_kernel",)),
               ("K2 sampling", ("sample_bisect_kernel",)),
               ("K3 flash attention", ("flash_fwd_kernel",)),
               ("K4 flash attention backward", ("flash_bwd_",)),
@@ -1181,9 +1219,14 @@ def main() -> None:
                             "decode_prefix", "decode_flat"])
     print(f"built {sorted(reports) or 'nothing (cached)'} in {time.time() - t:.1f} s")
     for name, rep in reports.items():
+        kernel = ""
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  {name}: {line.strip()}")
+            entry = re.search(r"\d([a-z_]+_kernel)((?:I?Li\d+E)*)", line)
+            if "Compiling entry function" in line and entry:
+                kernel = entry.group(1) + "<{}>".format(
+                    ", ".join(re.findall(r"Li(\d+)E", entry.group(2)))).replace("<>", "")
+            elif "registers" in line or "spill" in line or "smem" in line:
+                print(f"  {name} {kernel}: {line.strip()}")
 
     profile = "--profile" in sys.argv[1:]
     cfg = control_var_config_from_depth(16, multi_cond=True)

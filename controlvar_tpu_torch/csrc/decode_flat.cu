@@ -15,256 +15,258 @@
 // at 989 TFLOP/s, against 0.40 GB of q, K, V and out, 0.119 ms at 3.35 TB/s:
 // the bytes bound it.
 //
-// Design: K1's (csrc/decode_attention.cu). One block of 4 warps per (64-row
-// q tile, batch*head); each warp owns 16 q rows; the grid runs over B*H, so
-// an odd head count needs nothing of its own. What is K7's own is the
-// layout: a K^T or V^T tile is hd rows (head dims) of 64 contiguous keys,
-// streamed through shared memory double-buffered with cp.async straight from
-// the cache's strides. The K^T tile is the first product's B operand stored
-// k-major, so ldmatrix .trans gives its fragments; the V^T tile is already
-// the column-major B operand of P.V, read with plain 32-bit loads. The chunk
-// of 8 keys that holds `cur` is read only up to cur (cp.async's source size;
-// the rest is zero-filled), nothing at or past L_max is read, and scores past
-// cur are -inf (weight 0). Both products run as mma.sync m16n8k16 bf16 with
-// fp32 accumulation, with the online softmax and the output in registers.
-// Two buffers of K^T and V^T tiles take 576*hd bytes of shared memory (72 KB
-// at hd = 128), so every instance takes it as dynamic shared memory after
-// the opt-in. wgmma/TMA are later work.
+// Design: one block per (q group, batch*head), the q group fastest in the
+// grid, so the blocks of one head run together and each K/V tile comes from
+// HBM once and from L2 for the others; the grid runs over B*H, so an odd
+// head count needs nothing of its own. A q group is 64 rows (one consumer
+// warpgroup) at l <= 64 and 128 rows (two) above: at the final scale two
+// blocks a head, two blocks an SM at hd <= 64 (four-warpgroup blocks, one a
+// head, measured no faster). One producer warp streams the K^T and V^T
+// tiles, hd rows of 64 keys (128-byte rows at every hd), with TMA
+// (cp.async.bulk.tensor, 128-byte swizzle) into a ring of 4 stages paced by
+// full and empty mbarriers. The tensor maps end at key cur, so TMA
+// zero-fills the tile that straddles it and reads nothing at or past it;
+// scores past cur are -inf (weight 0). Each consumer warpgroup reads its 64
+// rows of q through their strides (the fused QKV's view, no copy) into
+// wgmma A fragments of q*scale (kept in shared memory, reloaded per tile:
+// see hopper.cuh); S = q K^T is wgmma m64n64k16 with the K^T
+// tile as B stored MN-major (the transpose bit), and O += P V takes P from
+// registers and the V^T tile as B stored K-major (m64n64 / n32 / n16 pieces
+// covering hd), fp32 accumulators in registers. The ring takes 1 KB per
+// head dim, the q fragments 128 bytes per head dim and warpgroup, of
+// dynamic shared memory (161 KB at hd = 128). ptxas (CUDA 12.8, sm_90a):
+// 93 (hd 16) to 154 (hd 128) registers; at hd 32 to 64 the two-warpgroup
+// instances, held to two blocks an SM, take 96 and spill 4 to 132 bytes,
+// which measured faster than one block an SM without spills (PERF.md
+// §11.6).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BQ = 64;        // q rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int WARPS = BQ / 16;
-constexpr int THREADS = WARPS * 32;
-constexpr int LDT = BK + 8;   // padded shared-memory row of 64 keys (bank-conflict free)
-constexpr float NEG_INF = -1e30f;  // masked score, as the TPU kernel
+using hopper::fence_regs;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_wait;
+using hopper::smem_desc;
+using hopper::smem_u32;
 
-// 16 bytes to shared memory of which the first `bytes` are read from global
-// memory and the rest zero-filled (0: nothing read)
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(bytes));
-}
+constexpr int BK = 64;      // keys per tile
+constexpr int STAGES = 4;   // the TMA ring
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// a (B, H, l, HD) bf16 operand read through its (batch, head, row) strides
+struct Rows {
+  const __nv_bfloat16* p;
+  long long sb, sh, sr;
+};
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// the ring, each consumer thread's q fragments, and alignment to 1024
+template <int HD, int NWG>
+constexpr int smem_bytes() { return STAGES * 2 * HD * 128 + NWG * 128 * HD + 1024; }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
+// O (64 x HD) += P (64 x 16 keys, registers) . V^T tile's 16 keys at `vt`
+// (hd rows of 128 bytes, K-major), in wgmma pieces of 64, 32 and 16 columns
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-decode_flat_kernel(const __nv_bfloat16* __restrict__ q,    // (B*H, l, HD)
-                   const __nv_bfloat16* __restrict__ kT,   // layer base, (B, H, HD, L)
-                   const __nv_bfloat16* __restrict__ vT,
-                   const uint8_t* __restrict__ mask,       // (l, cur) or null
-                   __nv_bfloat16* __restrict__ out,        // (B*H, l, HD)
-                   int H, int l, int cur,
-                   long long k_sb, long long k_sh, long long k_sd,
-                   long long v_sb, long long v_sh, long long v_sd,
-                   float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][HD][LDT]
-  __nv_bfloat16* vs = ks + 2 * HD * LDT;                           // [2][HD][LDT]
+__device__ __forceinline__ void pv_chunk(float (&o)[HD / 2], const uint32_t (&pa)[4],
+                                         uint32_t vt) {
+#pragma unroll
+  for (int c = 0; c + 64 <= HD; c += 64) {
+    hopper::WgmmaRS<64, 0>::run(&o[c / 2], pa, smem_desc(vt + c * 128), 1);
+  }
+  constexpr int c32 = HD / 64 * 64;
+  if constexpr (HD - c32 >= 32) {
+    hopper::WgmmaRS<32, 0>::run(&o[c32 / 2], pa, smem_desc(vt + c32 * 128), 1);
+  }
+  constexpr int c16 = c32 + (HD - c32 >= 32 ? 32 : 0);
+  if constexpr (HD - c16 >= 16) {
+    hopper::WgmmaRS<16, 0>::run(&o[c16 / 2], pa, smem_desc(vt + c16 * 128), 1);
+  }
+}
+
+template <int HD, int NWG>  // NWG consumer warpgroups: q rows per block = 64 NWG
+__global__ void __launch_bounds__(NWG * 128 + 32, HD > 64 ? 1 : 2)
+decode_flat_kernel(const __grid_constant__ CUtensorMap km,  // layer's K^T, keys [0, cur)
+                   const __grid_constant__ CUtensorMap vm,  // layer's V^T
+                   Rows q,                                  // (B, H, l, HD)
+                   const uint8_t* __restrict__ mask,        // (l, cur) or null
+                   __nv_bfloat16* __restrict__ out,         // (B*H, l, HD)
+                   int H, int l, int cur, float scale) {
+  constexpr int TILE = HD * 128;  // bytes of one K^T or V^T tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;  // stage s: K^T, then V^T
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;          // mma fragment row / column pair
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int row0 = blockIdx.y * BQ + warp * 16;  // this warp's first q row
-  const __nv_bfloat16* kb = kT + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = vT + b * v_sb + h * v_sh;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int row_blk = blockIdx.x * NWG * 64;
+  const int n_wg = min(NWG, (l - row_blk + 63) / 64);  // warpgroups with q rows
+  const int ntiles = (cur + BK - 1) / BK;
 
-  // one tile: HD rows of BK keys, 8 chunks of 8 keys a row; a chunk reads
-  // only its keys below cur
-  auto load_tile = [&](int t0, int buf) {
-    for (int i = tid; i < HD * (BK / 8); i += THREADS) {
-      const int d = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const int n = min(max(cur - (t0 + c), 0), 8);
-      const long long col = n > 0 ? t0 + c : 0;
-      cp_async16(&ks[(buf * HD + d) * LDT + c], kb + d * k_sd + col, 2 * n);
-      cp_async16(&vs[(buf * HD + d) * LDT + c], vb + d * v_sd + col, 2 * n);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(smem_u32(&full[s]), 1);
+      hopper::mbar_init(smem_u32(&empty[s]), 4 * n_wg);  // one arrival per consumer warp
     }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  load_tile(0, 0);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  // q*scale as A fragments, rounded to bf16; rows past l are zero
-  uint32_t qa[HD / 16][4];
+  if (warp == 4 * NWG) {  // the producer warp
+    if (lane == 0) {
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(smem_u32(&empty[s]), (it / STAGES - 1) & 1);
+        const uint32_t kdst = ring + s * 2 * TILE, bar = smem_u32(&full[s]);
+        mbar_expect_tx(bar, 2 * TILE);
+        hopper::tma_load_4d(kdst, &km, bar, it * BK, 0, h, b);
+        hopper::tma_load_4d(kdst + TILE, &vm, bar, it * BK, 0, h, b);
+      }
+    }
+    return;
+  }
+  const int wg = warp / 4;
+  if (wg >= n_wg) return;
+
+  const int g = lane / 4, t = lane % 4;                  // fragment row / column pair
+  const int row0 = row_blk + wg * 64 + (warp % 4) * 16;  // this warp's first q row
+  // q*scale as A fragments, rounded to bf16 (rows past l are zero), kept in
+  // shared memory and loaded afresh for every tile: see hopper.cuh
+  const __nv_bfloat16* qb = q.p + b * q.sb + h * q.sh;
+  uint4* qs = reinterpret_cast<uint4*>(smem_raw + (ring - smem_u32(smem_raw)) +
+                                       STAGES * 2 * TILE) + tid;
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int r = row0 + g + (j & 1) * 8, c = kk * 16 + 2 * t + (j >> 1) * 8;
       float2 f = make_float2(0.f, 0.f);
       if (r < l) {
-        f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            q + ((long long)bh * l + r) * HD + c));
+        f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(qb + (long long)r * q.sr + c));
       }
-      qa[kk][j] = pack_bf16(f.x * scale, f.y * scale);
+      a[j] = hopper::pack_bf16(f.x * scale, f.y * scale);
     }
+    qs[kk * NWG * 128] = make_uint4(a[0], a[1], a[2], a[3]);
   }
 
-  float o[HD / 8][4];
+  float o[HD / 2];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {NEG_INF, NEG_INF}, l_part[2] = {0.f, 0.f};  // rows g, g+8
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {hopper::NEG_INF, hopper::NEG_INF}, l_part[2] = {0.f, 0.f};
 
-  const int ntiles = (cur + BK - 1) / BK;
   for (int it = 0; it < ntiles; ++it) {
-    const int buf = it & 1, t0 = it * BK;
-    if (it + 1 < ntiles) {
-      load_tile(t0 + BK, buf ^ 1);
-    } else {
-      asm volatile("cp.async.commit_group;\n" ::);
-    }
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    __syncthreads();
-    const __nv_bfloat16* kt = ks + buf * HD * LDT;
-    const __nv_bfloat16* vt = vs + buf * HD * LDT;
+    const int s = it % STAGES, t0 = it * BK;
+    mbar_wait(smem_u32(&full[s]), (it / STAGES) & 1);
+    const uint32_t kt = ring + s * 2 * TILE, vt = kt + TILE;
 
-    // S = (q*scale) K^T: the K^T tile is stored [head dim][key], k-major, so
-    // ldmatrix .trans gives the B fragments of 8 keys
-    float s[BK / 8][4];
+    // S = (q*scale) K^T: the K^T tile [hd][key] is B stored MN-major
+    float sc[BK / 2];
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    fence_regs(sc);
+    hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      const unsigned kaddr = (unsigned)__cvta_generic_to_shared(
-          kt + (kk * 16 + (lane & 15)) * LDT);
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        uint32_t b0, b1;
-        asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                     : "=r"(b0), "=r"(b1) : "r"(kaddr + n * 16));
-        mma_bf16(s[n], qa[kk], b0, b1);
-      }
+      const uint4 v = qs[kk * NWG * 128];
+      const uint32_t a[4] = {v.x, v.y, v.z, v.w};
+      hopper::WgmmaRS<BK, 1>::run(sc, a, smem_desc(kt + 2048 * kk), kk > 0);
     }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait0();
+    fence_regs(sc);
 
     // mask (-1e30, as the reference) and the ragged end (-inf: weight 0)
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    if (mask != nullptr || t0 + BK > cur) {
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = t0 + n * 8 + 2 * t + (j & 1), r = row0 + g + (j >> 1) * 8;
+      for (int i = 0; i < BK / 2; ++i) {
+        const int col = t0 + 8 * (i >> 2) + 2 * t + (i & 1), r = row0 + g + 8 * ((i >> 1) & 1);
         if (col >= cur) {
-          s[n][j] = -CUDART_INF_F;
+          sc[i] = -CUDART_INF_F;
         } else if (mask != nullptr && r < l && !mask[(long long)r * cur + col]) {
-          s[n][j] = NEG_INF;
+          sc[i] = hopper::NEG_INF;
         }
-        mx[j >> 1] = fmaxf(mx[j >> 1], s[n][j]);
       }
     }
     float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m_run[i], quad_max(mx[i]));
-      alpha[i] = __expf(m_run[i] - m_new);
-      m_run[i] = m_new;
-      l_part[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[n][j] = __expf(s[n][j] - m_run[j >> 1]);
-        l_part[j >> 1] += s[n][j];
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
-    }
+    uint32_t pa[BK / 16][4];
+    hopper::softmax_tile(sc, m_run, l_part, alpha, pa);
+    hopper::scale_rows(o, alpha);
 
-    // O += P V; P's score fragments of key chunk kc are the A operand, and
-    // the V^T tile's rows (one head dim each) hold the B fragments' pairs
+    // O += P V: the V^T tile [hd][key] is B stored K-major
+    fence_regs(o);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const __nv_bfloat16* vrow = vt + (n * 8 + g) * LDT + kc * 16 + 2 * t;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(vrow);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(vrow + 8);
-        mma_bf16(o[n], pa, b0, b1);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two tiles on
+    for (int kc = 0; kc < BK / 16; ++kc) pv_chunk<HD>(o, pa[kc], vt + 32 * kc);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait0();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row0 + g + i * 8;
-    const float inv = 1.f / quad_sum(l_part[i]);
+    const float inv = 1.f / hopper::quad_sum(l_part[i]);
     if (r < l) {
       __nv_bfloat16* orow = out + ((long long)bh * l + r) * HD + 2 * t;
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n) {
         *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
-            __floats2bfloat162_rn(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+            __floats2bfloat162_rn(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
       }
     }
   }
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, const void* mask, void* out,
-           int B, int H, int l, int cur,
-           long long k_sb, long long k_sh, long long k_sd,
-           long long v_sb, long long v_sh, long long v_sd,
-           float scale, void* stream) {
-  const int smem = 4 * HD * LDT * (int)sizeof(__nv_bfloat16);
+template <int HD, int NWG>
+int launch(const CUtensorMap& km, const CUtensorMap& vm, Rows q, const void* mask,
+           void* out, int B, int H, int l, int cur, float scale, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      decode_flat_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      decode_flat_kernel<HD, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<HD, NWG>());
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * H, (l + BQ - 1) / BQ);
-  decode_flat_kernel<HD><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const uint8_t*)mask, (__nv_bfloat16*)out, H, l, cur,
-      k_sb, k_sh, k_sd, v_sb, v_sh, v_sd, scale);
+  const dim3 grid((l + 64 * NWG - 1) / (64 * NWG), B * H);
+  decode_flat_kernel<HD, NWG><<<grid, NWG * 128 + 32, smem_bytes<HD, NWG>(), stream>>>(
+      km, vm, q, (const uint8_t*)mask, (__nv_bfloat16*)out, H, l, cur, scale);
   return (int)cudaGetLastError();
+}
+
+// keys [0, cur) of a layer's (B, H, HD, L) K^T or V^T as a TMA map of
+// [HD][64 keys] tiles
+bool keys_map(CUtensorMap* map, const void* p, long long sb, long long sh, long long sd,
+              int B, int H, int hd, int cur) {
+  const long long dims[4] = {cur, hd, H, B}, strides[3] = {sd, sh, sb};
+  return hopper::encode_4d(map, p, dims, strides, BK, hd);
 }
 
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a head dim with no instance.
-extern "C" int decode_flat_bf16(int hd, const void* q, const void* k, const void* v,
+// cudaErrorInvalidValue for a head dim with no instance or when a tensor
+// map cannot be made (the head dim's and the batch and head strides must be
+// multiples of 16 bytes, the bases 16-byte aligned).
+extern "C" int decode_flat_bf16(int hd, const void* q, long long q_sb, long long q_sh,
+                                long long q_sr, const void* k, const void* v,
                                 const void* mask, void* out, int B, int H, int l, int cur,
                                 long long k_sb, long long k_sh, long long k_sd,
                                 long long v_sb, long long v_sh, long long v_sd,
                                 float scale, void* stream) {
-#define CASE(D)                                                                  \
-  case D:                                                                        \
-    return launch<D>(q, k, v, mask, out, B, H, l, cur, k_sb, k_sh, k_sd, v_sb,   \
-                     v_sh, v_sd, scale, stream);
+  if (hd % 16 != 0 || hd < 16 || hd > 128) return (int)cudaErrorInvalidValue;
+  CUtensorMap km, vm;
+  if (!keys_map(&km, k, k_sb, k_sh, k_sd, B, H, hd, cur) ||
+      !keys_map(&vm, v, v_sb, v_sh, v_sd, B, H, hd, cur)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Rows qr{(const __nv_bfloat16*)q, q_sb, q_sh, q_sr};
+#define CASE(D)                                                                          \
+  case D:                                                                                \
+    return l <= 64 ? launch<D, 1>(km, vm, qr, mask, out, B, H, l, cur, scale, st)        \
+                   : launch<D, 2>(km, vm, qr, mask, out, B, H, l, cur, scale, st);
   switch (hd) {
     CASE(16) CASE(32) CASE(48) CASE(64) CASE(80) CASE(96) CASE(112) CASE(128)
   }

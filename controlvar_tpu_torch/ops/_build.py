@@ -3,10 +3,12 @@
 Each `controlvar_tpu_torch/csrc/<name>.cu` is compiled by `nvcc` for Hopper
 (`sm_90a`) into its own shared library with a plain C interface, under
 `build/kernels/` at the repository root, at first use. A library is cached by
-a hash of its source, so an unchanged kernel is not rebuilt. The sources of a
-build are compiled together, one `nvcc` process each. Libraries are loaded
-with ctypes: every pointer and the stream are passed as `c_void_p`, and every
-C entry returns `cudaGetLastError()`, which `check` turns into an exception.
+a hash of its source and of the headers beside it (`csrc/*.cuh`), so an
+unchanged kernel is not rebuilt and a changed header rebuilds every source.
+The sources of a build are compiled together, one `nvcc` process each.
+Libraries are loaded with ctypes: every pointer and the stream are passed as
+`c_void_p`, and every C entry returns `cudaGetLastError()`, which `check`
+turns into an exception.
 
 A failed build raises: nothing falls back to another path.
 """
@@ -39,9 +41,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
+    """The library path of csrc/<name>.cu: a hash of the source, of every
+    header in csrc/ (which a source may include) and of the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read() + b"\0")
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

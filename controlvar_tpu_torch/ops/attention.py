@@ -15,7 +15,8 @@ fp32 scores.
 `decode_attention_flat` (K7, the port of `flash_decode`) computes the same
 function over the flat, transposed (depth, B, H, hd, L_max) cache of
 configs whose head dim is not 64 or whose head count is odd, with the
-kernel `csrc/decode_flat.cu` (instances for hd = 16, 32, ..., 128);
+kernel `csrc/decode_flat.cu` (TMA tiles in an mbarrier ring, wgmma for
+both products; instances for hd = 16, 32, ..., 128);
 `decode_attention_fused` (K8, the port of `flash_decode_fused`) over one
 fused (depth, B, H, L_max, 2 hd) cache with rows [k_h | v_h], with the
 second entry of `csrc/decode_attention.cu`, bit for bit K1's output. Their
@@ -25,9 +26,10 @@ plain versions are K1's on the transposed views and on the column halves.
 over a prefix read through strides and the scale's fresh rows, for the
 segmented cache mode; `decode_attention_inplace` (K6, the port of
 `flash_decode_inplace`) also writes the fresh rows into the stacked cache.
-Both launch `csrc/decode_prefix.cu` on CUDA tensors; on CPU tensors they
-take `decode_attention_prefix_plain` (and, for K6, the write as a tensor
-copy). Their rounding points are the TPU prefix kernel's, not K1's.
+Both launch `csrc/decode_prefix.cu` on CUDA tensors (K5 its mma.sync kernel,
+K6 its TMA/wgmma kernel, which also stores the fresh rows by TMA); on CPU
+tensors they take `decode_attention_prefix_plain` (and, for K6, the write as
+a tensor copy). Their rounding points are the TPU prefix kernel's, not K1's.
 
 `flash_attention` (K3, the port of `flash_attention(..., return_lse=True)`)
 and `flash_attention_bwd` (K4, the port of `flash_attention_bwd`) launch
@@ -98,6 +100,12 @@ def _check_decode_q(what: str, q: torch.Tensor, head_dims) -> None:
                          f"{head_dims}, got {q.dtype} {tuple(q.shape)}")
 
 
+def _check_grid(what: str, B: int, H: int) -> None:
+    """The TMA kernels (K6, K7) run one grid row per (batch, head)."""
+    if B * H > 65535:
+        raise ValueError(f"{what}: B * H = {B * H} is above the grid's 65535 rows")
+
+
 def _check_cache(what: str, name: str, t: torch.Tensor, shape, device) -> None:
     """A 5-D bf16 (depth, *shape, ...) cache on `device` whose rows are
     dense and start 16-byte aligned."""
@@ -162,8 +170,8 @@ decode_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 FLAT_HEAD_DIMS = tuple(range(16, 129, 16))  # K7's instances
-_FLAT_ARGTYPES = [ctypes.c_int] + [_C] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6 + [
-    ctypes.c_float, _C]
+_FLAT_ARGTYPES = ([ctypes.c_int, _C] + [ctypes.c_longlong] * 3 + [_C] * 4 + [ctypes.c_int] * 4
+                  + [ctypes.c_longlong] * 6 + [ctypes.c_float, _C])
 _FUSED_ARGTYPES = [_C] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_float, _C]
 
 
@@ -190,18 +198,19 @@ def decode_attention_flat(q: torch.Tensor, cache_kt: torch.Tensor, cache_vt: tor
     what = "decode_attention_flat"
     _check_decode_q(what, q, FLAT_HEAD_DIMS)
     B, H, l, hd = q.shape
+    _check_grid(what, B, H)
     for name, t in (("cache_kt", cache_kt), ("cache_vt", cache_vt)):
         _check_cache(what, name, t, (B, H, hd), q.device)
     if not 0 <= li < cache_kt.shape[0] or not 0 < cur <= min(cache_kt.shape[4],
                                                              cache_vt.shape[4]):
         raise ValueError(f"{what}: li={li}, cur={cur} out of range")
     mask = _check_mask(what, mask, l, cur, q.device)
-    q = q.contiguous()
-    out = torch.empty_like(q)
+    q = _dense_rows(q)  # read through its strides, as the fused QKV gives it
+    out = torch.empty(B, H, l, hd, dtype=q.dtype, device=q.device)
     kl, vl = cache_kt[li], cache_vt[li]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry("decode_flat", "decode_flat_bf16", _FLAT_ARGTYPES)(
-        hd, q.data_ptr(), kl.data_ptr(), vl.data_ptr(),
+        hd, *_rows(q), kl.data_ptr(), vl.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         B, H, l, cur, *kl.stride()[:3], *vl.stride()[:3],
         float(_scale_in(torch.bfloat16, scale)), stream)
@@ -360,16 +369,14 @@ def decode_attention_inplace(q: torch.Tensor, cache_k: torch.Tensor, cache_v: to
     what = "decode_attention_inplace"
     _check_prefix_inputs(what, q, k_new, v_new)
     B, H, l, hd = q.shape
-    for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
-        if t.dim() != 5:
-            raise ValueError(f"{what}: {name} must be (depth, B, H, L_max, hd), got "
-                             f"{tuple(t.shape)}")
-        _check_operand(name, t[0], (B, H, t.shape[3], hd), q.device, what)
-    if cache_k.shape != cache_v.shape:
+    _check_grid(what, B, H)
+    if cache_k.dim() != 5 or cache_k.shape != cache_v.shape:
         raise ValueError(f"{what}: cache_k {tuple(cache_k.shape)} and cache_v "
-                         f"{tuple(cache_v.shape)} differ")
+                         f"{tuple(cache_v.shape)} must be one (depth, B, H, L_max, hd) shape")
     if not 0 <= li < cache_k.shape[0] or not 0 <= pos <= cache_k.shape[3] - l:
         raise ValueError(f"{what}: li={li}, pos={pos} (l={l}) out of range")
+    for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
+        _check_operand(name, t[li], (B, H, t.shape[3], hd), q.device, what)
     out = torch.empty(B, H, l, hd, dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry("decode_prefix", "decode_inplace_bf16", _INPLACE_ARGTYPES)(
