@@ -7,8 +7,12 @@ Run from the root of a checkout. Phases, each fatal on failure:
   1. environment: the card's name and power limit (nvidia-smi);
   2. build every kernel from controlvar_tpu_torch/csrc with nvcc (sm_90a),
      one nvcc per source, all started together;
-  3. K1 decode attention vs its plain version at every scale's (l, cur) of
-     the serving path, and at the final scale under an `indep` mask;
+  3. K1 decode attention vs its plain version, q strided as the fused QKV
+     gives it, at every scale's (l, cur) of the serving path, at the final
+     scale under an `indep` mask, at every scale of the d24 joint path's
+     stacked cache (16 CFG rows x 24 heads) and at B*H = 70,000 heads (cur
+     64, l 8); its and SDPA's device times at every serving scale and
+     summed over one call (x 16);
   4. K2 bisection sampling vs its plain version at every scale's row count,
      then greedy, Philox and kept-set checks at the final scale, and the
      distribution of 1e4 Philox draws (and of the unfiltered categorical,
@@ -33,7 +37,9 @@ Run from the root of a checkout. Phases, each fatal on failure:
      times at every scale and summed over one call (x 13); K8 fused decode
      bit-equal to K1 on the same rows and vs its plain version at every
      scale of the VAR-d12 path (128 CFG rows, 12 heads), masked and
-     unmasked; all on the cache-layer views the decode paths give them and
+     unmasked, and at B*H = 70,000 heads, its and SDPA's times at every
+     scale and summed over one call (x 12); all on the cache-layer views
+     the decode paths give them and
      q strided as the fused QKV gives it; with their times, the plain
      versions' and SDPA's over contiguous K/V made outside the time;
   8. small-input reference: fp32 tokenizer ids on the GPU equal the CPU's;
@@ -203,7 +209,24 @@ def tv_check(name, row, ids, kept) -> None:
         fail(f"{name}: TV {tv:.4f} beyond the multinomial noise {noise:.4f}")
 
 
-def k1_phase(torch, cfg):
+def scale_times(name, cases, depth, call) -> None:
+    """A decode kernel's and SDPA's device times at every scale of a path,
+    and their sums over one call (each scale's time times the depth).
+    cases yields (label, kernel fn, SDPA fn), one scale at a time; each time
+    is graph_ms's (CUDA graphs, so host dispatch does not enter it)."""
+    from controlvar_tpu_torch.probes.decode_scales import graph_ms
+
+    per_scale = []
+    for label, kernel, sdpa in cases:
+        per_scale.append((graph_ms(kernel), graph_ms(sdpa)))
+        print(f"{name} per scale, {label}: kernel {per_scale[-1][0]:.4f} ms, "
+              f"sdpa {per_scale[-1][1]:.4f} ms (device time, CUDA graph)")
+    per_call = [depth * sum(col) for col in zip(*per_scale)]
+    print(f"{name} per {call} ({depth} layers x {len(per_scale)} scales): kernel "
+          f"{per_call[0]:.4f} ms, sdpa {per_call[1]:.4f} ms")
+
+
+def k1_phase(torch, cfg, cfg24):
     """Decode attention vs its plain version; returns the kernels-line entry."""
     import torch.nn.functional as F
 
@@ -216,17 +239,25 @@ def k1_phase(torch, cfg):
     scale = cfg.attn_scale
     ck = torch.randn(2, R_B, H, L, hd, generator=g, device=dev).to(bf)
     cv = torch.randn(2, R_B, H, L, hd, generator=g, device=dev).to(bf)
-    # q of std 4: scores of std ~1 after the 1/32 scale, a peaked softmax
-    rand_q = lambda l: (4 * torch.randn(R_B, H, l, hd, generator=g, device=dev)).to(bf)
+
+    def rand_q(l, B=R_B, H=H):
+        """q of std 4 (scores of std ~1 after the 1/32 scale, a peaked
+        softmax), the strided (B, H, l, hd) view of a fused QKV output, as
+        the blocks give it."""
+        qkv = (4 * torch.randn(B, l, 3, H, hd, generator=g, device=dev)).to(bf)
+        return qkv.permute(2, 0, 3, 1, 4)[0]
+
+    def case(name, q, ck, cv, li, cur, mask=None):
+        got = decode_attention(q, ck, cv, li, cur, scale, mask)
+        kk, vv = ck[li, :, :, :cur], cv[li, :, :, :cur]
+        want = decode_attention_plain(q, kk, vv, scale, mask)
+        mag = decode_attention_plain(q, kk, vv.abs(), scale, mask)
+        return check_close(name, got, want, mag)
+
     errs = []
-    # every scale's (l, cur) of the main path, over layer 1 of the cache
+    # every scale's (l, cur) of the serving path, over layer 1 of the cache
     for lo, cur in cfg.begin_ends:
-        q = rand_q(cur - lo)
-        got = decode_attention(q, ck, cv, 1, cur, scale)
-        kk, vv = ck[1, :, :, :cur], cv[1, :, :, :cur]
-        want = decode_attention_plain(q, kk, vv, scale)
-        mag = decode_attention_plain(q, kk, vv.abs(), scale)
-        errs.append(check_close(f"K1 l={cur - lo} cur={cur}", got, want, mag))
+        errs.append(case(f"K1 l={cur - lo} cur={cur}", rand_q(cur - lo), ck, cv, 1, cur))
     # masked: separate_decoding + indep mask rows of the final scale
     from controlvar_tpu_torch.config import control_var_config_from_depth
 
@@ -236,12 +267,32 @@ def k1_phase(torch, cfg):
     mask = torch.from_numpy(attn_mask_for_config(mcfg)[lo:hi, :hi]).to(dev)
     if bool(mask.all()):
         fail("K1 masked case: the mask slice masks nothing")
-    q = rand_q(hi - lo)
-    got = decode_attention(q, ck, cv, 0, hi, scale, mask)
-    kk, vv = ck[0, :, :, :hi], cv[0, :, :, :hi]
-    want = decode_attention_plain(q, kk, vv, scale, mask)
-    mag = decode_attention_plain(q, kk, vv.abs(), scale, mask)
-    errs.append(check_close(f"K1 masked l={hi - lo} cur={hi}", got, want, mag))
+    errs.append(case(f"K1 masked l={hi - lo} cur={hi}", rand_q(hi - lo), ck, cv, 0, hi, mask))
+    # every scale of the d24 joint path's stacked cache: 16 CFG rows x 24
+    # heads, 384 heads, so the items do not fill the persistent grid evenly
+    H24 = cfg24.num_heads
+    ck24, cv24 = (torch.randn(2, 16, H24, cfg24.seq_len, hd, generator=g, device=dev).to(bf)
+                  for _ in range(2))
+    for si, (lo, cur) in enumerate(cfg24.begin_ends):
+        errs.append(case(f"K1 d24 l={cur - lo} cur={cur}", rand_q(cur - lo, 16, H24), ck24,
+                         cv24, si % 2, cur))
+    del ck24, cv24
+    # B * H = 70,000 > 65535: one item axis, no grid limit
+    big_k, big_v = (torch.randn(2, 4375, 16, 72, hd, generator=g, device=dev).to(bf)
+                    for _ in range(2))
+    errs.append(case("K1 B*H=70000 l=8 cur=64", rand_q(8, 4375, 16), big_k, big_v, 1, 64))
+    del big_k, big_v
+
+    # K1 and SDPA (over contiguous K/V made outside the time) at every scale
+    def k1_cases():
+        for lo, cur in cfg.begin_ends:
+            q = rand_q(cur - lo)
+            kc, vc = ck[1, :, :, :cur].contiguous(), cv[1, :, :, :cur].contiguous()
+            yield (f"l={cur - lo} cur={cur}",
+                   lambda: decode_attention(q, ck, cv, 1, cur, scale),
+                   lambda: F.scaled_dot_product_attention(q, kc, vc, scale=scale))
+
+    scale_times("K1", k1_cases(), cfg.depth, "serving call")
 
     # timing at the final scale, unmasked
     l, cur = 512, L
@@ -450,7 +501,6 @@ def prefix_phase(torch, cfg):
     from controlvar_tpu_torch.ops.attention import (
         decode_attention_inplace, decode_attention_inplace_plain, decode_attention_prefix,
         decode_attention_prefix_plain)
-    from controlvar_tpu_torch.probes.decode_scales import graph_ms
 
     g = torch.Generator(device="cuda").manual_seed(7)
     dev, bf, hd, scale = "cuda", torch.bfloat16, cfg.head_dim, cfg.attn_scale
@@ -541,19 +591,16 @@ def prefix_phase(torch, cfg):
         print(f"K5 d24 final scale, {pname}: kernel {times[pname][0]:.4f} ms, plain "
               f"{times[pname][1]:.4f} ms, sdpa over the concatenated K/V "
               f"{times[pname][2]:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    # K6 and SDPA (the attention alone) at every scale, device time from
-    # CUDA graphs, and over one call: each scale's time times the depth
-    per_scale = []
-    for pos, qs, kns, vns in scales6:
-        kk, vv = torch.cat([ck[1, :, :, :pos], kns], 2), torch.cat([cv[1, :, :, :pos], vns], 2)
-        per_scale.append((
-            graph_ms(lambda: decode_attention_inplace(qs, ck, cv, kns, vns, 1, pos, scale)),
-            graph_ms(lambda: F.scaled_dot_product_attention(qs, kk, vv, scale=scale))))
-        print(f"K6 per scale, pos={pos} l={qs.shape[2]}: kernel {per_scale[-1][0]:.4f} ms, "
-              f"sdpa {per_scale[-1][1]:.4f} ms (device time, CUDA graph)")
-    per_call = [cfg.depth * sum(col) for col in zip(*per_scale)]
-    print(f"K6 per joint call ({cfg.depth} layers x {len(per_scale)} scales): kernel "
-          f"{per_call[0]:.4f} ms, sdpa {per_call[1]:.4f} ms")
+    # K6 and SDPA (the attention alone) at every scale
+    def k6_cases():
+        for pos, qs, kns, vns in scales6:
+            kk = torch.cat([ck[1, :, :, :pos], kns], 2)
+            vv = torch.cat([cv[1, :, :, :pos], vns], 2)
+            yield (f"pos={pos} l={qs.shape[2]}",
+                   lambda: decode_attention_inplace(qs, ck, cv, kns, vns, 1, pos, scale),
+                   lambda: F.scaled_dot_product_attention(qs, kk, vv, scale=scale))
+
+    scale_times("K6", k6_cases(), cfg.depth, "joint call")
     ms6 = cuda_ms(lambda: decode_attention_inplace(q6, ck, cv, kn6, vn6, 1, full_pos, scale), 20)
     lib6 = lib_ms(q6, ck[1, :, :, :full_pos], cv[1, :, :, :full_pos], kn6, vn6)
     plain6 = cuda_ms(lambda: decode_attention_inplace_plain(q6, ck, cv, kn6, vn6, 1, full_pos,
@@ -583,7 +630,6 @@ def flat_fused_phase(torch, cfg12, cfg13):
     from controlvar_tpu_torch.ops.attention import (
         decode_attention, decode_attention_flat, decode_attention_flat_plain,
         decode_attention_fused, decode_attention_fused_plain)
-    from controlvar_tpu_torch.probes.decode_scales import graph_ms
 
     g = torch.Generator(device="cuda").manual_seed(9)
     dev, bf, R_B = "cuda", torch.bfloat16, 128       # B = 64 CFG pairs
@@ -634,21 +680,16 @@ def flat_fused_phase(torch, cfg12, cfg13):
         mag = decode_attention_flat_plain(q, kk, vv.abs(), sc, mask)
         errs7.append(check_close(f"K7 ragged (2, 3, {l}, {hd_r}), cur={cur}, masked", got, want,
                                  mag))
-    # K7 and SDPA (over contiguous K/V made outside the time) at every scale,
-    # device time from CUDA graphs, and over one call: each scale's time
-    # times the depth
-    per_scale = []
-    for lo, cur in cfg13.begin_ends:
-        q = fresh_q(R_B, H, cur - lo, hd)
-        k_c, v_c = (c[1, ..., :cur].transpose(2, 3).contiguous() for c in (ck, cv))
-        per_scale.append((
-            graph_ms(lambda: decode_attention_flat(q, ck, cv, 1, cur, scale)),
-            graph_ms(lambda: F.scaled_dot_product_attention(q, k_c, v_c, scale=scale))))
-        print(f"K7 per scale, l={cur - lo} cur={cur}: kernel {per_scale[-1][0]:.4f} ms, "
-              f"sdpa {per_scale[-1][1]:.4f} ms (device time, CUDA graph)")
-    per_call = [cfg13.depth * sum(col) for col in zip(*per_scale)]
-    print(f"K7 per VAR-d13 call ({cfg13.depth} layers x {len(per_scale)} scales): kernel "
-          f"{per_call[0]:.4f} ms, sdpa {per_call[1]:.4f} ms")
+    # K7 and SDPA (over contiguous K/V made outside the time) at every scale
+    def k7_cases():
+        for lo, cur in cfg13.begin_ends:
+            q = fresh_q(R_B, H, cur - lo, hd)
+            k_c, v_c = (c[1, ..., :cur].transpose(2, 3).contiguous() for c in (ck, cv))
+            yield (f"l={cur - lo} cur={cur}",
+                   lambda: decode_attention_flat(q, ck, cv, 1, cur, scale),
+                   lambda: F.scaled_dot_product_attention(q, k_c, v_c, scale=scale))
+
+    scale_times("K7", k7_cases(), cfg13.depth, "VAR-d13 call")
     q = fresh_q(R_B, H, L - cfg13.begin_ends[-1][0], hd)
     kk, vv = ck[1, ..., :L], cv[1, ..., :L]
     k_c, v_c = kk.transpose(2, 3).contiguous(), vv.transpose(2, 3).contiguous()
@@ -678,6 +719,25 @@ def flat_fused_phase(torch, cfg12, cfg13):
                 q, torch.cat([kv[1, :, :, :cur, :hd], kv[1, :, :, :cur, hd:].abs()], -1),
                 scale, mask)
             errs8.append(check_close(f"{name} (bit-equal to K1)", got, want, mag))
+    # B * H = 70,000 > 65535: one item axis, no grid limit
+    big = randn(2, 4375, 16, 72, 2 * hd).to(bf)
+    q = fresh_q(4375, 16, 8, hd)
+    got = decode_attention_fused(q, big, 1, 64, scale)
+    want = decode_attention_fused_plain(q, big[1, :, :, :64], scale)
+    mag = decode_attention_fused_plain(
+        q, torch.cat([big[1, :, :, :64, :hd], big[1, :, :, :64, hd:].abs()], -1), scale)
+    errs8.append(check_close("K8 B*H=70000 l=8 cur=64", got, want, mag))
+    del big
+    # K8 and SDPA (over contiguous K/V made outside the time) at every scale
+    def k8_cases():
+        for lo, cur in cfg12.begin_ends:
+            q = fresh_q(R_B, H, cur - lo, hd)
+            k_c, v_c = ck[1, :, :, :cur].contiguous(), cv[1, :, :, :cur].contiguous()
+            yield (f"l={cur - lo} cur={cur}",
+                   lambda: decode_attention_fused(q, kv, 1, cur, scale),
+                   lambda: F.scaled_dot_product_attention(q, k_c, v_c, scale=scale))
+
+    scale_times("K8", k8_cases(), cfg12.depth, "VAR-d12 kv_fused call")
     q = fresh_q(R_B, H, L - cfg12.begin_ends[-1][0], hd)
     k_c, v_c = ck[1, :, :, :L].contiguous(), cv[1, :, :, :L].contiguous()
     k8 = dict(name="decode_attention_fused", route="cuda",
@@ -1221,22 +1281,23 @@ def main() -> None:
     for name, rep in reports.items():
         kernel = ""
         for line in rep.splitlines():
-            entry = re.search(r"\d([a-z_]+_kernel)((?:I?Li\d+E)*)", line)
+            entry = re.search(r"\d([a-z_]+_kernel)((?:I?L[bi]\d+E)*)", line)
             if "Compiling entry function" in line and entry:
                 kernel = entry.group(1) + "<{}>".format(
-                    ", ".join(re.findall(r"Li(\d+)E", entry.group(2)))).replace("<>", "")
-            elif "registers" in line or "spill" in line or "smem" in line:
+                    ", ".join(re.findall(r"L[bi](\d+)E", entry.group(2)))).replace("<>", "")
+            elif any(k in line for k in ("registers", "spill", "smem", "serialized")):
                 print(f"  {name} {kernel}: {line.strip()}")
 
     profile = "--profile" in sys.argv[1:]
     cfg = control_var_config_from_depth(16, multi_cond=True)
+    cfg24 = control_var_config_from_depth(24, multi_cond=True)
     phase("K1 decode attention vs plain")
-    k1 = k1_phase(torch, cfg)
+    k1 = k1_phase(torch, cfg, cfg24)
+    torch.cuda.empty_cache()
     phase("K2 bisection sampling vs plain")
     k2 = k2_phase(torch, cfg.vocab_size, cfg.patch_nums)
     phase("K3 flash attention and K4 backward vs plain")
     k3, k4 = flash_phase(torch, cfg)
-    cfg24 = control_var_config_from_depth(24, multi_cond=True)
     phase("K5 prefix decode and K6 in-place decode vs plain")
     k5, k6 = prefix_phase(torch, cfg24)
     torch.cuda.empty_cache()

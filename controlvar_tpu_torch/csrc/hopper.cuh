@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the TMA/wgmma decode kernels:
-// mbarriers, TMA tile loads and stores, wgmma with A from registers and B
-// from 128-byte-swizzled shared memory, the online-softmax step on a wgmma
-// score fragment, and the host-side tensor-map encoder. Raw PTX only, so a
-// source that includes this builds in seconds (no CUTLASS, no PyTorch).
+// mbarriers, named barriers, TMA tile loads and stores and the tensor-map
+// prefetch, wgmma with A from registers or from shared memory and B from
+// 128-byte-swizzled shared memory, the online-softmax step on a wgmma score
+// fragment, and the host-side tensor-map encoder. Raw PTX only, so a source
+// that includes this builds in seconds (no CUTLASS, no PyTorch).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (header only: nothing links libcuda)
@@ -84,6 +85,24 @@ __device__ __forceinline__ void tma_store_wait_read() {
 // the committed stores are complete
 __device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// brings a __grid_constant__ tensor map into the TMA unit's descriptor cache
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"((uint64_t)map) : "memory");
+}
+
+// --------------------------------------------------------- named barriers
+
+// wait at barrier `id` until `n` threads (this one included) have arrived
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// orders this thread's shared-memory writes before later reads by the
+// async proxy (wgmma operands, TMA stores)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------------- wgmma
@@ -175,6 +194,26 @@ struct WgmmaRS<64, TB> {
   }
 };
 
+// D (+)= A . B, one wgmma m64nNk16 with A and B both in shared memory,
+// both K-major in the 128-byte swizzle (descriptors from smem_desc)
+template <int N>
+struct WgmmaSS;
+
+template <>
+struct WgmmaSS<64> {
+  __device__ __forceinline__ static void run(float* d, uint64_t desc_a, uint64_t desc_b,
+                                             int acc) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : HOPPER_F8(0), HOPPER_F8(8), HOPPER_F8(16), HOPPER_F8(24)
+        : "l"(desc_a), "l"(desc_b), "r"(acc));
+  }
+};
+
 #undef HOPPER_F8
 #undef HOPPER_F4
 
@@ -217,6 +256,48 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m_run)[2],
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     s[i] = __expf(s[i] - m_run[(i >> 1) & 1]);
+    l_part[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    const float* a = &s[8 * kc];  // key n-tiles 2 kc and 2 kc + 1
+    pa[kc][0] = pack_bf16(a[0], a[1]);
+    pa[kc][1] = pack_bf16(a[2], a[3]);
+    pa[kc][2] = pack_bf16(a[4], a[5]);
+    pa[kc][3] = pack_bf16(a[6], a[7]);
+  }
+}
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// softmax_tile with exp(s - m) taken as 2^(s log2e - m log2e): one FFMA and
+// one MUFU.EX2 a score where __expf(s - m) takes an FADD, an FMUL and the
+// MUFU (at hd = 64 a tile's exponentials, at 16 a clock, take as many SM
+// clocks as its two products at the bf16 peak). Probabilities below
+// 2^-126 flush to 0.
+__device__ __forceinline__ void softmax_tile_ex2(float (&s)[32], float (&m_run)[2],
+                                                 float (&l_part)[2], float (&alpha)[2],
+                                                 uint32_t (&pa)[4][4]) {
+  constexpr float L2E = 1.4426950408889634f;
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float neg_ml[2];  // -m log2e of rows g and g + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+    alpha[r] = ex2_approx((m_run[r] - m_new) * L2E);
+    m_run[r] = m_new;
+    l_part[r] *= alpha[r];
+    neg_ml[r] = -m_new * L2E;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = ex2_approx(fmaf(s[i], L2E, neg_ml[(i >> 1) & 1]));
     l_part[(i >> 1) & 1] += s[i];
   }
 #pragma unroll

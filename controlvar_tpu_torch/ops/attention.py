@@ -7,10 +7,12 @@ forward (K3) and backward (K4).
 flash_decode_paired`: for one layer `li` of the (depth, B, H, L_max, hd)
 cache it computes softmax(q*scale . K^T [mask -> -1e30]) . V over rows
 [0, cur). On a CUDA tensor it launches the hand-written Hopper kernel
-`csrc/decode_attention.cu`, which reads the cache in place through strides;
-on a CPU tensor it takes `decode_attention_plain`, the einsum path of the JAX
-package's `_mha_decode_paired` on the per-head layout, with the TPU kernel's
-fp32 scores.
+`csrc/decode_attention.cu` (a persistent grid over (q group, batch*head)
+items, TMA tiles in an mbarrier ring, wgmma for both products), which reads
+the cache in place and q through their strides; on a CPU tensor it takes
+`decode_attention_plain`, the einsum path of the JAX package's
+`_mha_decode_paired` on the per-head layout, with the TPU kernel's fp32
+scores.
 
 `decode_attention_flat` (K7, the port of `flash_decode`) computes the same
 function over the flat, transposed (depth, B, H, hd, L_max) cache of
@@ -19,8 +21,9 @@ kernel `csrc/decode_flat.cu` (TMA tiles in an mbarrier ring, wgmma for
 both products; instances for hd = 16, 32, ..., 128);
 `decode_attention_fused` (K8, the port of `flash_decode_fused`) over one
 fused (depth, B, H, L_max, 2 hd) cache with rows [k_h | v_h], with the
-second entry of `csrc/decode_attention.cu`, bit for bit K1's output. Their
-plain versions are K1's on the transposed views and on the column halves.
+second instance of `csrc/decode_attention.cu`'s kernel (only the tile load
+differs), bit for bit K1's output. Their plain versions are K1's on the
+transposed views and on the column halves.
 
 `decode_attention_prefix` (K5, the port of `flash_decode_prefix`) attends
 over a prefix read through strides and the scale's fresh rows, for the
@@ -56,7 +59,8 @@ from controlvar_tpu_torch.ops import _build
 NEG_INF = -1e30  # large negative instead of -inf: keeps masked softmax NaN-free
 
 _C = ctypes.c_void_p
-_ARGTYPES = [_C, _C, _C, _C, _C] + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6 + [
+_ROWS = [_C] + [ctypes.c_longlong] * 3  # a pointer and its (batch, head, row) strides
+_ARGTYPES = _ROWS + [_C] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6 + [
     ctypes.c_float, _C]
 
 
@@ -101,7 +105,8 @@ def _check_decode_q(what: str, q: torch.Tensor, head_dims) -> None:
 
 
 def _check_grid(what: str, B: int, H: int) -> None:
-    """The TMA kernels (K6, K7) run one grid row per (batch, head)."""
+    """K6 and K7 run one grid row per (batch, head); K1 and K8, on a
+    persistent grid, have no such limit."""
     if B * H > 65535:
         raise ValueError(f"{what}: B * H = {B * H} is above the grid's 65535 rows")
 
@@ -132,7 +137,10 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tens
                      li: int, cur: int, scale: float,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of q (B, H, l, hd) over rows [0, cur) of layer `li` of the
-    stacked caches (depth, B, H, L_max, hd); mask: optional (l, cur) bool."""
+    stacked caches (depth, B, H, L_max, hd); mask: optional (l, cur) bool.
+    On the card q may have any (batch, head, row) strides with dense,
+    16-byte-aligned rows (the fused QKV's view); the result is a fresh
+    contiguous (B, H, l, hd) tensor."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, cache_k[li, :, :, :cur],
                                       cache_v[li, :, :, :cur], scale, mask)
@@ -148,12 +156,12 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tens
                                                              cache_v.shape[3]):
         raise ValueError(f"{what}: li={li}, cur={cur} out of range")
     mask = _check_mask(what, mask, l, cur, q.device)
-    q = q.contiguous()
-    out = torch.empty_like(q)
+    _check_operand("q", q, tuple(q.shape), q.device, what)  # read through its strides
+    out = torch.empty(B, H, l, hd, dtype=q.dtype, device=q.device)
     kl, vl = cache_k[li], cache_v[li]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry("decode_attention", "decode_attention_bf16", _ARGTYPES)(
-        q.data_ptr(), kl.data_ptr(), vl.data_ptr(),
+        *_rows(q), kl.data_ptr(), vl.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         B, H, l, cur, *kl.stride()[:3], *vl.stride()[:3],
         float(_scale_in(torch.bfloat16, scale)), stream)
@@ -172,7 +180,8 @@ decode_attention.launches = 0
 FLAT_HEAD_DIMS = tuple(range(16, 129, 16))  # K7's instances
 _FLAT_ARGTYPES = ([ctypes.c_int, _C] + [ctypes.c_longlong] * 3 + [_C] * 4 + [ctypes.c_int] * 4
                   + [ctypes.c_longlong] * 6 + [ctypes.c_float, _C])
-_FUSED_ARGTYPES = [_C] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_float, _C]
+_FUSED_ARGTYPES = _ROWS + [_C] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [
+    ctypes.c_float, _C]
 
 
 def decode_attention_flat_plain(q: torch.Tensor, k_t: torch.Tensor, v_t: torch.Tensor,
@@ -235,7 +244,8 @@ def decode_attention_fused(q: torch.Tensor, cache_kv: torch.Tensor, li: int, cur
                            scale: float, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of q (B, H, l, 64) over rows [0, cur) of layer `li` of the
     fused cache (depth, B, H, L_max, 128), rows [k_h | v_h] (kernel K8, equal
-    bit for bit to K1 over the same rows); mask: optional (l, cur) bool."""
+    bit for bit to K1 over the same rows); mask: optional (l, cur) bool. q
+    as for `decode_attention`."""
     if q.device.type == "cpu":
         return decode_attention_fused_plain(q, cache_kv[li, :, :, :cur], scale, mask)
     what = "decode_attention_fused"
@@ -248,12 +258,12 @@ def decode_attention_fused(q: torch.Tensor, cache_kv: torch.Tensor, li: int, cur
     if not 0 <= li < cache_kv.shape[0] or not 0 < cur <= cache_kv.shape[3]:
         raise ValueError(f"{what}: li={li}, cur={cur} out of range")
     mask = _check_mask(what, mask, l, cur, q.device)
-    q = q.contiguous()
-    out = torch.empty_like(q)
+    _check_operand("q", q, tuple(q.shape), q.device, what)  # read through its strides
+    out = torch.empty(B, H, l, hd, dtype=q.dtype, device=q.device)
     kv = cache_kv[li]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry("decode_attention", "decode_fused_bf16", _FUSED_ARGTYPES)(
-        q.data_ptr(), kv.data_ptr(), None if mask is None else mask.data_ptr(),
+        *_rows(q), kv.data_ptr(), None if mask is None else mask.data_ptr(),
         out.data_ptr(), B, H, l, cur, *kv.stride()[:3],
         float(_scale_in(torch.bfloat16, scale)), stream)
     _build.check(err, f"{what} launch")
@@ -268,7 +278,6 @@ decode_attention_fused.launches = 0
 # decode over [cache prefix | fresh rows]: K5 (prefix) and K6 (in place)
 # ---------------------------------------------------------------------------
 
-_ROWS = [_C] + [ctypes.c_longlong] * 3  # a pointer and its (batch, head, row) strides
 _PREFIX_ARGTYPES = _ROWS * 5 + [_C, _C] + [ctypes.c_int] * 4 + [ctypes.c_float, _C]
 _INPLACE_ARGTYPES = _ROWS * 5 + [_C] + [ctypes.c_int] * 4 + [ctypes.c_float, _C]
 

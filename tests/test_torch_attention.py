@@ -60,3 +60,24 @@ def test_cpu_dispatch_reads_layer_prefix_of_stacked_cache(with_mask):
                                   torch.from_numpy(v[:, :, :cur]), 0.125, mask)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert decode_attention.launches == 0  # the plain path launches nothing
+
+
+@pytest.mark.parametrize("view,ok", [("fused_qkv", True), ("contiguous", True),
+                                     ("head_dim_strided", False), ("misaligned_rows", False)])
+def test_kernel_q_check_takes_fused_qkv_views(view, ok):
+    """K1 and K8 read q through its (batch, head, row) strides on the card;
+    their wrappers hold q to dense, 16-byte-aligned rows (the fused QKV's
+    view passes) and raise on anything else instead of copying it."""
+    from controlvar_tpu_torch.ops.attention import _check_operand
+
+    base = torch.zeros(B, 6, 3, H, HD + 8, dtype=torch.bfloat16)
+    q = {"fused_qkv": base[..., :HD].permute(2, 0, 3, 1, 4)[0],
+         "contiguous": torch.zeros(B, H, 6, HD, dtype=torch.bfloat16),
+         "head_dim_strided": torch.zeros(B, H, HD, 6, dtype=torch.bfloat16).transpose(2, 3),
+         "misaligned_rows": base.flatten()[1:1 + B * H * 6 * HD].view(B, H, 6, HD)}[view]
+    assert q.shape == (B, H, 6, HD)
+    if ok:
+        _check_operand("q", q, tuple(q.shape), q.device, "decode_attention")
+    else:
+        with pytest.raises(ValueError, match="dense and 16-byte"):
+            _check_operand("q", q, tuple(q.shape), q.device, "decode_attention")
