@@ -18,19 +18,25 @@ Run from the root of a checkout. Phases, each fatal on failure:
      distribution of 1e4 Philox draws (and of the unfiltered categorical,
      whose noise is made on the card) against the analytic softmax;
   5. K3 flash attention forward and K4 backward vs their plain versions at
-     the d16 training shape (8, 16, 1360, 64) under the block-causal mask,
-     with q, k, v and dO strided as the training path gives them, and at a
-     small ragged shape under a causal mask, with their times, the plain
-     versions' and SDPA's (forward, and its autograd backward);
-  6. K5 prefix decode vs its plain version at the d24 joint path's final
-     scale (16 CFG rows, 24 heads, l = 512) over the full prefix (pos =
-     848) and the kv_window=2 one (pos = 540), and at a small ragged masked
-     shape; K6 in-place decode vs its plain version at every scale's (pos,
-     l) of the joint path (scale 0 is pos == 0), each with a check that it
-     changed exactly rows [pos, pos + l) of layer li; all on the strided
-     views the decode paths give them; with their times, the plain
-     versions' and SDPA's over the concatenated K/V, K6's and SDPA's at
-     every scale and summed over one call (x 24 layers);
+     the d16 training shape (8, 16, 1360, 64) under the block-causal mask
+     and under a random pattern of 64 x 64 tiles (fully masked tiles
+     anywhere, the diagonal kept), with q, k, v and dO strided as the
+     training path gives them, and at a small ragged shape under a causal
+     mask; K4 run twice on the same inputs gives the same bits; with their
+     times, the plain versions' and SDPA's (forward, and its autograd
+     backward);
+  6. K5 prefix decode vs its plain version at every scale's (pos, l) of
+     the d24 joint path's segmented cache (16 CFG rows, 24 heads), over the
+     full prefix and over the kv_window=2 one, on the views
+     blocks_decode_seg gives it, then on masked and ragged shapes (pos off
+     and on the 64-row tiles, l < 64 and l > 128, pos = 0) and under the
+     `indep` mask's slice at the final scale; K6 in-place decode vs its
+     plain version at every scale's (pos, l) of the joint path (scale 0 is
+     pos == 0), each with a check that it changed exactly rows [pos, pos +
+     l) of layer li; all on the strided views the decode paths give them;
+     K5's and K6's times and SDPA's over the concatenated K/V at every
+     scale and summed over one call (x 24 layers), and at the final scale
+     beside the plain versions';
   7. K7 flat decode vs its plain version at every scale's (l, cur) of the
      VAR-d13 path (128 CFG rows, 13 heads of 64, L = 680, the flat layout)
      and at hd 32, 96 and 128 on a ragged masked shape, its and SDPA's
@@ -147,17 +153,9 @@ def phase(name: str) -> None:
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of fn over `reps` back-to-back calls, after a warm-up."""
-    import torch
+    from controlvar_tpu_torch.probes.decode_scales import events_ms
 
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    return events_ms(fn, reps)
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
@@ -430,11 +428,29 @@ def flash_phase(torch, cfg):
         do = torch.randn(B, L, H, hd, generator=g, device=dev).to(bf).transpose(1, 2)
         return q, k, v, do
 
+    def tile_pattern_mask(L):
+        """A random pattern of 64 x 64 tiles, about half of them fully
+        masked, a quarter mixed and a quarter full, with the diagonal kept
+        so that every row attends somewhere: its fully masked tiles lie
+        anywhere, not in one contiguous run as the block-causal mask's do."""
+        nt = -(-L // 64)
+        kind = torch.randint(0, 4, (nt, nt), generator=g, device=dev)  # 0, 1 empty; 2 mixed
+        kind = kind.repeat_interleave(64, 0).repeat_interleave(64, 1)[:L, :L]
+        mask = (kind == 3) | ((kind == 2) & (torch.rand(L, L, generator=g, device=dev) > 0.5))
+        mask.diagonal().fill_(True)
+        flags = tile_flags(mask)
+        print(f"tile-pattern mask: tiles fully masked / mixed / full = "
+              f"{int((flags == 2).sum())} / {int((flags == 0).sum())} / "
+              f"{int((flags == 1).sum())}")
+        return mask
+
     train_mask = torch.from_numpy(attn_mask_for_config(cfg)).to(dev)
     cases = [("d16 train (8, 16, 1360, 64), block-causal, strided", 8, cfg.num_heads,
               train_mask, True),
              ("ragged (2, 3, 100, 64), causal", 2, 3,
-              torch.ones(100, 100, dtype=torch.bool, device=dev).tril(), False)]
+              torch.ones(100, 100, dtype=torch.bool, device=dev).tril(), False),
+             ("random 64x64 tile pattern (8, 16, 1360, 64), strided", 8, cfg.num_heads,
+              tile_pattern_mask(cfg.seq_len), True)]
     errs3, errs4 = [], []
     for name, B, H, mask, strided in cases:
         q, k, v, do = inputs(B, H, mask.shape[0], strided)
@@ -454,6 +470,12 @@ def flash_phase(torch, cfg):
             errs4.append(check_close(f"K4 {name}: {gname}", a, b, m,
                                      2.0 ** -16 * float(m.max())))
         del mags
+        # no atomics: a second run on the same inputs gives the same bits
+        again = flash_attention_bwd(q, k, v, mask, want, want_lse, do, scale)
+        for gname, a, b in zip(("dq", "dk", "dv"), got, again):
+            if not torch.equal(a, b):
+                fail(f"K4 {name}: {gname} differs between two runs on the same inputs")
+        print(f"K4 {name}: dq, dk, dv bit-equal over two runs")
 
     # times at the training path's shapes, strides and precomputed flags
     B, H, L = 8, cfg.num_heads, cfg.seq_len
@@ -494,13 +516,17 @@ def flash_phase(torch, cfg):
 
 def prefix_phase(torch, cfg):
     """K5 and K6 vs their plain versions at the d24 joint path's shapes and
-    a small ragged masked one; times at the final scale. Returns the two
-    kernels-line entries (K5's at the kv_window=2 shape its path runs)."""
+    at small ragged masked ones; times at every scale and at the final one.
+    Returns the two kernels-line entries (K5's at the kv_window=2 shape its
+    path runs)."""
     import torch.nn.functional as F
 
+    from controlvar_tpu_torch.config import control_var_config_from_depth
+    from controlvar_tpu_torch.models.masks import attn_mask_for_config
     from controlvar_tpu_torch.ops.attention import (
         decode_attention_inplace, decode_attention_inplace_plain, decode_attention_prefix,
         decode_attention_prefix_plain)
+    from controlvar_tpu_torch.probes.decode_scales import seg_scales
 
     g = torch.Generator(device="cuda").manual_seed(7)
     dev, bf, hd, scale = "cuda", torch.bfloat16, cfg.head_dim, cfg.attn_scale
@@ -514,6 +540,14 @@ def prefix_phase(torch, cfg):
         qkv = randn(B, l, 3, H, hd)
         qkv[:, :, 0] *= 4.0
         return qkv.to(bf).permute(2, 0, 3, 1, 4)
+
+    def seg_views(B, H, pos, l):
+        """K5's operands as blocks_decode_seg gives them: q strided from the
+        fused QKV, the prefix as layer 1 of the (depth, B, H, pos, hd)
+        concatenation of the kept segments, the fresh rows as layer 1 of
+        this scale's (depth, B, H, l, hd) segment."""
+        pre, seg = randn(2, 2, B, H, pos, hd).to(bf), randn(2, 2, B, H, l, hd).to(bf)
+        return fresh(B, H, l)[0], pre[0, 1], pre[1, 1], seg[0, 1], seg[1, 1]
 
     def k5_case(name, q, pk, pv, kn, vn, mask=None):
         got = decode_attention_prefix(q, pk, pv, kn, vn, scale, mask)
@@ -539,26 +573,35 @@ def prefix_phase(torch, cfg):
               f"to the fresh rows")
         return err
 
-    lo, hi = cfg.begin_ends[-1]
-    l, full_pos = hi - lo, lo
-    # kv_window=2 at the final scale: scale 0's segment and the last two
-    window_pos = cfg.scale_seg_len(0) + sum(cfg.scale_seg_len(si) for si in (-3, -2))
+    def rand_mask(l, cols):
+        mask = torch.rand(l, cols, generator=g, device=dev) > 0.3
+        mask[:, 0] = True
+        return mask
+
     errs5, errs6 = [], []
-    # K5 on the segmented path's views: layer 1 of the concatenated kept
-    # segments, the fresh rows of layer 1 of this scale's segment
-    seg_k, seg_v = randn(2, R, H, l, hd).to(bf), randn(2, R, H, l, hd).to(bf)
-    q = fresh(R, H, l)[0]
-    k5_inputs = {}
-    for pname, pos in (("full prefix", full_pos), ("kv_window=2", window_pos)):
-        pre_k, pre_v = randn(2, R, H, pos, hd).to(bf), randn(2, R, H, pos, hd).to(bf)
-        k5_inputs[pname] = (q, pre_k[1], pre_v[1], seg_k[1], seg_v[1])
-        errs5.append(k5_case(f"d24 final scale, {pname} (pos={pos}, l={l})",
-                             *k5_inputs[pname]))
-    qs, ks, vs = fresh(2, 3, 37)
-    mask = torch.rand(37, 83 + 37, generator=g, device=dev) > 0.3
-    mask[:, 0] = True
-    errs5.append(k5_case("ragged (2, 3, 37, 64), pos=83, masked", qs,
-                         randn(2, 3, 83, hd).to(bf), randn(2, 3, 83, hd).to(bf), ks, vs, mask))
+    # K5 at every scale of both seg paths (the full prefix and kv_window=2),
+    # on the views the path gives it; every kv_window=2 pos is off the
+    # 64-row tiles, so each launch has a ragged seam between the two ranges
+    paths = {"full prefix": seg_scales(cfg, None), "kv_window=2": seg_scales(cfg, 2)}
+    for pname, scales in paths.items():
+        for pos, l in scales:
+            errs5.append(k5_case(f"d24 {pname} (pos={pos}, l={l})", *seg_views(R, H, pos, l)))
+    # masked and ragged: pos off and on the tiles, l < 64 and l > 128, an
+    # `indep` mask slice at the final scale, and pos = 0 (the fresh rows alone)
+    for B_, H_, pos, l, masked in ((2, 3, 83, 37, True), (2, 3, 100, 200, True),
+                                   (2, 3, 128, 64, True), (2, 3, 0, 5, False),
+                                   (2, 3, 0, 100, True)):
+        mask = rand_mask(l, pos + l) if masked else None
+        errs5.append(k5_case(f"ragged ({B_}, {H_}, {l}, 64), pos={pos}"
+                             f"{', masked' if masked else ''}", *seg_views(B_, H_, pos, l), mask))
+    mcfg = control_var_config_from_depth(24, multi_cond=True, separate_decoding=True,
+                                         indep=True)
+    lo, hi = mcfg.begin_ends[-1]
+    mask = torch.from_numpy(attn_mask_for_config(mcfg)[lo:hi, :hi]).to(dev)
+    if bool(mask.all()):
+        fail("K5 indep case: the mask slice masks nothing")
+    errs5.append(k5_case(f"d24 indep mask slice (pos={lo}, l={hi - lo})",
+                         *seg_views(R, H, lo, hi - lo), mask))
 
     # K6 on the stacked path's views: the (depth, R, H, L, hd) caches and the
     # fresh k, v straight from the fused QKV; at every scale of the joint
@@ -571,20 +614,35 @@ def prefix_phase(torch, cfg):
                              si % 2, lo))
         scales6.append((lo, qs, kns, vns))
     q6, kn6, vn6 = scales6[-1][1:]
+    full_pos = cfg.begin_ends[-1][0]
+
+    # K5 and SDPA (over the concatenated K/V, made outside the time) at every
+    # scale of both seg paths
+    def k5_cases(scales):
+        for pos, l in scales:
+            args = seg_views(R, H, pos, l)
+            kk, vv = torch.cat([args[1], args[3]], 2), torch.cat([args[2], args[4]], 2)
+            yield (f"pos={pos} l={l}", lambda: decode_attention_prefix(*args, scale),
+                   lambda: F.scaled_dot_product_attention(args[0], kk, vv, scale=scale))
+
+    for pname, scales in paths.items():
+        scale_times(f"K5 {pname}", k5_cases(scales), cfg.depth, f"{pname} joint call")
 
     # times at the final scale
     def lib_ms(q, pk, pv, kn, vn):
         kk, vv = torch.cat([pk, kn], dim=2), torch.cat([pv, vn], dim=2)  # outside the time
         return cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, vv, scale=scale), 20)
 
-    def bounds(pos, write):
+    def bounds(pos, l, write):
         n = R * H * hd
         nbytes = 2 * (2 * n * l + 2 * n * (pos + l)) + (2 * 2 * n * l if write else 0)
         return bound_ms(nbytes, 4 * R * H * l * (pos + l) * hd, PEAK_BF16_FLOPS)
 
     times = {}
-    for pname, args in k5_inputs.items():
-        b_ms, b_by = bounds(args[1].shape[2], False)
+    for pname, scales in paths.items():
+        pos, l = scales[-1]
+        args = seg_views(R, H, pos, l)
+        b_ms, b_by = bounds(pos, l, False)
         times[pname] = (cuda_ms(lambda: decode_attention_prefix(*args, scale), 20),
                         cuda_ms(lambda: decode_attention_prefix_plain(*args, scale), 3),
                         lib_ms(*args), b_ms, b_by)
@@ -605,12 +663,12 @@ def prefix_phase(torch, cfg):
     lib6 = lib_ms(q6, ck[1, :, :, :full_pos], cv[1, :, :, :full_pos], kn6, vn6)
     plain6 = cuda_ms(lambda: decode_attention_inplace_plain(q6, ck, cv, kn6, vn6, 1, full_pos,
                                                             scale), 3)
-    b6 = bounds(full_pos, True)
+    b6 = bounds(full_pos, q6.shape[2], True)
     print(f"K6 d24 final scale: kernel {ms6:.4f} ms, plain {plain6:.4f} ms, sdpa of the "
           f"attention alone {lib6:.4f} ms, bound {b6[0]:.4f} ms ({b6[1]})")
     w = times["kv_window=2"]
-    return (dict(name="decode_attention_prefix", route="cuda",
-                 source="controlvar_tpu_torch/csrc/decode_prefix.cu",
+    return (dict(name="decode_attention_prefix", route="cuda",  # K1's kernel, K5's tile load
+                 source="controlvar_tpu_torch/csrc/decode_attention.cu",
                  replaces="controlvar_tpu/ops/attention.py:667", max_abs_err=max(errs5),
                  ms=w[0], plain_ms=w[1], bound_ms=w[3], bound_by=w[4], library_ms=w[2]),
             dict(name="decode_attention_inplace", route="cuda",
@@ -1180,10 +1238,11 @@ def var_path_phase(torch, cfg, modes, profile: bool, timed_rounds: bool):
     return results
 
 
-# kernel-name substrings of each device-time category, tested in this order
-CATEGORIES = (("K1/K8 decode attention", ("decode_attention_kernel",)),
+# kernel-name substrings of each device-time category, tested in this order:
+# K5 runs K1's kernel body under its own name, matched before K1/K8's
+CATEGORIES = (("K5 prefix decode", ("decode_attention_prefix_kernel",)),
+              ("K1/K8 decode attention", ("decode_attention_kernel",)),
               ("K7 flat decode attention", ("decode_flat_kernel",)),
-              ("K5 prefix decode", ("decode_prefix_kernel",)),
               ("K6 in-place decode", ("decode_inplace_kernel",)),
               ("K2 sampling", ("sample_bisect_kernel",)),
               ("K3 flash attention", ("flash_fwd_kernel",)),
@@ -1194,6 +1253,11 @@ CATEGORIES = (("K1/K8 decode attention", ("decode_attention_kernel",)),
               ("copy and cast", ("copy", "Memcpy", "Memset")),
               ("elementwise", ("elementwise",)),
               ("reduction and norm", ("reduce", "Moments", "norm", "softmax")))
+
+
+def category(kernel_name: str) -> str:
+    """The device-time category of a kernel (CATEGORIES), else "other"."""
+    return next((c for c, keys in CATEGORIES if any(k in kernel_name for k in keys)), "other")
 
 
 def device_profile(torch, fn, tag):
@@ -1211,7 +1275,7 @@ def device_profile(torch, fn, tag):
         if e.device_type != DeviceType.CUDA or e.name == "Command Buffer Full":
             continue
         spans.append((e.time_range.start, e.time_range.end))
-        cat = next((c for c, keys in CATEGORIES if any(k in e.name for k in keys)), "other")
+        cat = category(e.name)
         by_cat[cat] = by_cat.get(cat, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     busy, end = 0.0, float("-inf")
     for s, e in sorted(spans):

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the TMA/wgmma decode kernels:
-// mbarriers, named barriers, TMA tile loads and stores and the tensor-map
-// prefetch, wgmma with A from registers or from shared memory and B from
-// 128-byte-swizzled shared memory, the online-softmax step on a wgmma score
-// fragment, and the host-side tensor-map encoder. Raw PTX only, so a source
+// Hopper (sm_90a) building blocks shared by the TMA/wgmma kernels (the
+// decode kernels and the training backward): mbarriers, named barriers,
+// TMA tile loads and stores and the tensor-map prefetch, wgmma with A from
+// registers or from shared memory and B from 128-byte-swizzled shared
+// memory, a score fragment packed as bf16 A operands, the online-softmax
+// step on a wgmma score fragment, and the host-side tensor-map encoder. Raw PTX only, so a source
 // that includes this builds in seconds (no CUTLASS, no PyTorch).
 #pragma once
 
@@ -234,6 +235,20 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// A 64 x 64 fp32 wgmma fragment (s[4n + j]: row g + 8 (j >> 1), column 8n
+// + 2t + (j & 1)) rounded to bf16 as the A operands of its four 16-column
+// chunks (columns 16 kc.. are n-tiles 2 kc and 2 kc + 1)
+__device__ __forceinline__ void pack_a(const float (&s)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    const float* x = &s[8 * kc];
+    a[kc][0] = pack_bf16(x[0], x[1]);
+    a[kc][1] = pack_bf16(x[2], x[3]);
+    a[kc][2] = pack_bf16(x[4], x[5]);
+    a[kc][3] = pack_bf16(x[6], x[7]);
+  }
+}
+
 // One 64-key tile of the online softmax on a 64 x 64 wgmma score fragment
 // (s[4n + j]: row g + 8 (j >> 1), key 8n + 2t + (j & 1)), already masked:
 // updates the running max and denominator of rows g and g + 8, turns s
@@ -258,14 +273,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m_run)[2],
     s[i] = __expf(s[i] - m_run[(i >> 1) & 1]);
     l_part[(i >> 1) & 1] += s[i];
   }
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const float* a = &s[8 * kc];  // key n-tiles 2 kc and 2 kc + 1
-    pa[kc][0] = pack_bf16(a[0], a[1]);
-    pa[kc][1] = pack_bf16(a[2], a[3]);
-    pa[kc][2] = pack_bf16(a[4], a[5]);
-    pa[kc][3] = pack_bf16(a[6], a[7]);
-  }
+  pack_a(s, pa);
 }
 
 __device__ __forceinline__ float ex2_approx(float x) {
@@ -300,14 +308,7 @@ __device__ __forceinline__ void softmax_tile_ex2(float (&s)[32], float (&m_run)[
     s[i] = ex2_approx(fmaf(s[i], L2E, neg_ml[(i >> 1) & 1]));
     l_part[(i >> 1) & 1] += s[i];
   }
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const float* a = &s[8 * kc];  // key n-tiles 2 kc and 2 kc + 1
-    pa[kc][0] = pack_bf16(a[0], a[1]);
-    pa[kc][1] = pack_bf16(a[2], a[3]);
-    pa[kc][2] = pack_bf16(a[4], a[5]);
-    pa[kc][3] = pack_bf16(a[6], a[7]);
-  }
+  pack_a(s, pa);
 }
 
 // O (64 x N wgmma fragment: o[4n + j], row g + 8 (j >> 1), column 8n + 2t +

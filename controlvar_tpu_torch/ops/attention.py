@@ -29,10 +29,12 @@ transposed views and on the column halves.
 over a prefix read through strides and the scale's fresh rows, for the
 segmented cache mode; `decode_attention_inplace` (K6, the port of
 `flash_decode_inplace`) also writes the fresh rows into the stacked cache.
-Both launch `csrc/decode_prefix.cu` on CUDA tensors (K5 its mma.sync kernel,
-K6 its TMA/wgmma kernel, which also stores the fresh rows by TMA); on CPU
-tensors they take `decode_attention_prefix_plain` (and, for K6, the write as
-a tensor copy). Their rounding points are the TPU prefix kernel's, not K1's.
+On CUDA tensors K5 launches the third instance of `csrc/decode_attention.cu`'s
+kernel, whose tile load reads the prefix's tiles, then the fresh rows', and
+K6 the TMA/wgmma kernel of `csrc/decode_prefix.cu`, which also stores the
+fresh rows by TMA; on CPU tensors they take `decode_attention_prefix_plain`
+(and, for K6, the write as a tensor copy). Their rounding points are the
+TPU prefix kernel's: p is rounded unnormalised, as K1's kernel rounds it.
 
 `flash_attention` (K3, the port of `flash_attention(..., return_lse=True)`)
 and `flash_attention_bwd` (K4, the port of `flash_attention_bwd`) launch
@@ -50,6 +52,7 @@ Nothing falls back: a CUDA input a kernel does not take raises.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -295,9 +298,10 @@ def decode_attention_prefix_plain(q: torch.Tensor, prefix_k: torch.Tensor,
     (B, H, l, hd)] with the TPU prefix kernel's rounding points: fp32 scores
     from the rounded q*scale, p = exp(s - m) over both ranges, p rounded to
     q's dtype for the PV product, and the output divided by the sum of the
-    unrounded p after PV. These are not K1's (which normalizes p before
-    rounding it); they are K3's, so the computation is K3's plain forward
-    over the concatenated keys. mask: optional (l, pos + l) bool."""
+    unrounded p after PV. These are not those of K1's plain version (which
+    normalizes p before rounding it); they are K3's, so the computation is
+    K3's plain forward over the concatenated keys. mask: optional (l, pos +
+    l) bool."""
     k = torch.cat([prefix_k.to(q.dtype), k_new.to(q.dtype)], dim=2)
     v = torch.cat([prefix_v.to(q.dtype), v_new.to(q.dtype)], dim=2)
     return flash_attention_plain(q, k, v, mask, scale)[0]
@@ -321,8 +325,9 @@ def decode_attention_prefix(q: torch.Tensor, prefix_k: torch.Tensor,
 
     q, k_new, v_new: (B, H, l, hd); prefix_k, prefix_v: (B, H, pos, hd),
     e.g. one layer of a concatenated cache; all may have any (batch, head,
-    row) strides with dense rows. mask: optional (l, pos + l) bool, True =
-    attend. Returns (B, H, l, hd) contiguous."""
+    row) strides with dense, 16-byte-aligned rows. pos may be 0 (the fresh
+    rows alone). mask: optional (l, pos + l) bool, True = attend. Returns
+    (B, H, l, hd) contiguous."""
     if q.device.type == "cpu":
         return decode_attention_prefix_plain(q, prefix_k, prefix_v, k_new, v_new, scale,
                                              mask)
@@ -339,7 +344,7 @@ def decode_attention_prefix(q: torch.Tensor, prefix_k: torch.Tensor,
         mask = mask.contiguous()
     out = torch.empty(B, H, l, hd, dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry("decode_prefix", "decode_prefix_bf16", _PREFIX_ARGTYPES)(
+    err = _entry("decode_attention", "decode_prefix_bf16", _PREFIX_ARGTYPES)(
         *_rows(q), *_rows(prefix_k), *_rows(prefix_v), *_rows(k_new), *_rows(v_new),
         None if mask is None else mask.data_ptr(), out.data_ptr(), B, H, l, pos,
         float(_scale_in(torch.bfloat16, scale)), stream)
@@ -405,7 +410,7 @@ decode_attention_inplace.launches = 0
 
 _FWD_ARGTYPES = ([_C] + [ctypes.c_longlong] * 3) * 3 + [_C] * 4 + [ctypes.c_int] * 3 + [
     ctypes.c_float, _C]
-_BWD_ARGTYPES = ([_C] + [ctypes.c_longlong] * 3) * 4 + [_C] * 7 + [ctypes.c_int] * 3 + [
+_BWD_ARGTYPES = ([_C] + [ctypes.c_longlong] * 3) * 5 + [_C] * 7 + [ctypes.c_int] * 3 + [
     ctypes.c_float, _C]
 _TILE = 64  # rows of the kernels' tiles
 
@@ -495,14 +500,21 @@ def _check_inputs(q, k, v, mask, what: str):
 def tile_flags(mask: torch.Tensor) -> torch.Tensor:
     """(nt, nt) uint8, nt = ceil(L / 64), one flag per 64 x 64 tile of the
     (L, L) mask, over its part inside L: 1 where it has no False, 2 where it
-    has no True, 0 where it has both. The kernels read mask bytes only in
-    tiles flagged 0; a model computes the flags once beside its mask."""
+    has no True and every row of its 64 query rows has a True in some other
+    tile, else 0. The kernels read mask bytes only in tiles flagged 0, and
+    K4 skips those flagged 2: there P = exp(-1e30 - lse) is exactly 0. A
+    row with no True at all has lse = -1e30 and P = 1 on every key (the TPU
+    kernels' value), so its tiles are flagged 0 and computed. A model
+    computes the flags once beside its mask."""
     L = mask.shape[0]
     nt = -(-L // _TILE)
     padded = mask.new_zeros(nt * _TILE, nt * _TILE)
     padded[:L, :L] = mask
     tiles = padded.view(nt, _TILE, nt, _TILE)
     empty = ~tiles.any(dim=3).any(dim=1)
+    rows_attend = padded.any(dim=1)
+    rows_attend[L:] = True
+    empty &= rows_attend.view(nt, _TILE).all(dim=1)[:, None]
     padded[L:] = True
     padded[:, L:] = True
     full = tiles.all(dim=3).all(dim=1)
@@ -557,27 +569,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of `flash_attention` (kernel K4: a dq pass and a dk/dv
     pass, launched together and counted as one launch). out and lse are the
-    forward's; g, the cotangent of out, may have any strides with dense rows;
-    flags as for `flash_attention`."""
+    forward's; g, the cotangent of out, and out may have any strides with
+    dense rows; flags as for `flash_attention`. On the card the scale must
+    be a power of two (1/32 at hd 64, or 1 under cos_attn): K4 scales the
+    fp32 scores, which equals rounding q*scale to bf16 only then."""
     if _check_inputs(q, k, v, mask, "flash_attention_bwd"):
         return flash_attention_bwd_plain(q, k, v, mask, out, lse, g, scale)
     B, H, L, hd = q.shape
     _check_operand("g", g, tuple(q.shape), q.device)
-    if lse.shape != (B, H, L) or lse.dtype != torch.float32 or out.shape != q.shape:
+    _check_operand("out", out, tuple(q.shape), q.device)
+    if lse.shape != (B, H, L) or lse.dtype != torch.float32:
         raise ValueError("flash_attention_bwd: out and lse must be the forward's")
+    scale_bf = float(_scale_in(torch.bfloat16, scale))
+    if scale_bf <= 0 or math.frexp(scale_bf)[0] != 0.5:
+        raise ValueError(f"flash_attention_bwd: the kernel takes a scale that is a power of "
+                         f"two, got {scale}")
     mask, lse = mask.contiguous(), lse.contiguous()
     flags = _kernel_flags(mask, flags)
-    # D = rowsum(dO * out) in fp32, once for both passes (plain tensor code
-    # in the JAX package too)
-    dsum = (g.float() * out.float()).sum(dim=-1)
+    # D = rowsum(dO * out) in fp32: the dq pass writes it, the dk/dv pass reads it
+    dsum = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty(B, H, L, hd, dtype=q.dtype, device=q.device) for _ in range(3))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry("flash_attention", "flash_bwd_bf16", _BWD_ARGTYPES)(
-        q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
-        v.data_ptr(), *v.stride()[:3], g.data_ptr(), *g.stride()[:3],
+        *_rows(q), *_rows(k), *_rows(v), *_rows(g), *_rows(out),
         mask.data_ptr(), flags.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, H, L, float(_scale_in(torch.bfloat16, scale)), stream)
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, L, scale_bf, stream)
     _build.check(err, "flash_attention_bwd launch")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

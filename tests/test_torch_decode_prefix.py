@@ -25,7 +25,8 @@ from controlvar_tpu_torch.models import transformer as tfm
 from controlvar_tpu_torch.ops.attention import (decode_attention_inplace,
                                                 decode_attention_inplace_plain,
                                                 decode_attention_prefix,
-                                                decode_attention_prefix_plain)
+                                                decode_attention_prefix_plain,
+                                                flash_attention_plain)
 
 B, H, HD, SCALE = 2, 4, 64, 0.125
 TINY = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4),
@@ -48,13 +49,17 @@ def _normal(rng, *shape):
     return rng.normal(0, 1, shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("pos,l,masked", [(27, 13, False), (30, 5, True), (43, 21, True)])
+@pytest.mark.parametrize("pos,l,masked", [(27, 13, False), (30, 5, True), (43, 21, True),
+                                          (64, 13, True), (128, 72, False), (27, 70, True),
+                                          (100, 130, True)])
 def test_prefix_plain_matches_jax_kernel(pos, l, masked):
     """K5's plain version vs `flash_decode_prefix` (interpret mode) at pos
-    and l off the TPU's 8-row tiling, unmasked and masked; the CPU dispatch
-    of `decode_attention_prefix` is the plain version and launches nothing."""
+    and l off the TPU's 8-row tiling, at pos a multiple of the card
+    kernel's 64-row tiles and at l above 64 and 128, unmasked and masked;
+    the CPU dispatch of `decode_attention_prefix` is the plain version and
+    launches nothing."""
     rng = np.random.default_rng(pos + l)
-    L_max = 64
+    L_max = max(64, pos + 8)  # a cache with room past pos, as the decode path has
     q, k_new, v_new = (_normal(rng, B, H, l, HD) for _ in range(3))
     cache_k, cache_v = _normal(rng, B, H, L_max, HD), _normal(rng, B, H, L_max, HD)
     mask = None
@@ -71,6 +76,21 @@ def test_prefix_plain_matches_jax_kernel(pos, l, masked):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
     torch.testing.assert_close(decode_attention_prefix(*args), got, rtol=0, atol=0)
     assert decode_attention_prefix.launches == 0
+
+
+def test_prefix_at_pos_0_is_the_fresh_rows_alone():
+    """pos = 0 (an empty prefix) is attention over the fresh rows: the
+    public function takes it, though the segmented path sends scale 0 to
+    K1."""
+    rng = np.random.default_rng(9)
+    q, k_new, v_new = (torch.from_numpy(_normal(rng, B, H, 21, HD)) for _ in range(3))
+    empty = torch.zeros(B, H, 0, HD)
+    mask = torch.from_numpy(rng.random((21, 21)) > 0.4)
+    mask[:, 0] = True
+    for m in (None, mask):
+        got = decode_attention_prefix(q, empty, empty, k_new, v_new, SCALE, m)
+        want = flash_attention_plain(q, k_new, v_new, m, SCALE)[0]
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("pos,l", [(19, 11), (0, 13), (32, 8)])

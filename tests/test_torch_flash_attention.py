@@ -33,11 +33,25 @@ def mha_einsum(q, k, v, scale, mask):
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
 
 
+def _tile_pattern(L, tile, seed):
+    """A random pattern of tile x tile blocks (about half fully masked, a
+    quarter mixed, a quarter full) with the diagonal kept, so every row
+    attends somewhere: its fully masked blocks are not one contiguous run."""
+    rng = np.random.default_rng(seed)
+    nt = -(-L // tile)
+    kind = np.kron(rng.integers(0, 4, (nt, nt)), np.ones((tile, tile), int))[:L, :L]
+    mask = (kind == 3) | ((kind == 2) & (rng.random((L, L)) > 0.5))
+    np.fill_diagonal(mask, True)
+    return mask
+
+
 def _mask(kind):
     if kind == "block_causal":
         cfg = JCfg(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4),
                    vocab_size=64, num_classes=8, multi_cond=True)
         return np.asarray(j_mask_for_config(cfg))
+    if kind == "tile_pattern":  # at the 16-row blocks of the Pallas kernels below
+        return _tile_pattern(42, 16, 0)
     return np.tril(np.ones((42, 42), bool))
 
 
@@ -46,7 +60,7 @@ def _inputs(seed, L=42, dtype=np.float32):
     return [rng.normal(0, 1, (B, H, L, HD)).astype(dtype) for _ in range(4)]
 
 
-@pytest.mark.parametrize("kind", ["block_causal", "tril"])
+@pytest.mark.parametrize("kind", ["block_causal", "tril", "tile_pattern"])
 def test_plain_forward_and_backward_match_pallas_interpret(kind):
     mask = _mask(kind)
     assert mask.shape == (42, 42) and not mask.all()
@@ -135,15 +149,28 @@ def test_wrappers_reject_other_devices():
         flash_attention_bwd(q, q, q, mask, q, torch.zeros(1, 2, 8, device="meta"), q, SCALE)
 
 
-@pytest.mark.parametrize("kind", ["block_causal", "tril", "d16"])
+@pytest.mark.parametrize("kind", ["block_causal", "tril", "d16", "indep", "tile_pattern",
+                                  "rows_without_true"])
 def test_tile_flags_match_each_tile(kind):
-    """The kernels' per-tile mask flags (1: no False, 2: no True, 0: both)
-    over the part of each 64 x 64 tile inside L, against a loop over tiles;
-    L = 42 and 1360 are not multiples of 64."""
-    from controlvar_tpu_torch.models.masks import block_causal_mask
+    """The kernels' per-tile mask flags (1: no False; 2: no True, where
+    every row of the tile's 64 query rows has a True somewhere, so that K4
+    may skip the tile; else 0) over the part of each 64 x 64 tile inside L,
+    against a loop over tiles and rows; L = 42, 300 and 1360 are not
+    multiples of 64. The training masks and the tile pattern attend from
+    every row; the last mask has rows that attend nowhere, whose tiles are
+    never flagged 2."""
+    from controlvar_tpu_torch.models.masks import block_causal_mask, separate_decoding_mask
 
+    pn = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
     if kind == "d16":
-        mask = block_causal_mask((1, 2, 3, 4, 5, 6, 8, 10, 13, 16), 2)
+        mask = block_causal_mask(pn, 2)
+    elif kind == "indep":
+        mask = separate_decoding_mask(pn, indep=True)
+    elif kind == "tile_pattern":
+        mask = _tile_pattern(300, 64, 1)
+    elif kind == "rows_without_true":
+        mask = np.tril(np.ones((300, 300), bool))
+        mask[[70, 200, 201]] = False
     else:
         mask = _mask(kind)
     L = mask.shape[0]
@@ -151,11 +178,19 @@ def test_tile_flags_match_each_tile(kind):
     nt = -(-L // 64)
     assert flags.shape == (nt, nt) and flags.dtype == np.uint8
     for i in range(nt):
+        rows_attend = all(mask[r].any() for r in range(64 * i, min(L, 64 * i + 64)))
         for j in range(nt):
             tile = mask[64 * i:64 * i + 64, 64 * j:64 * j + 64]
-            assert flags[i, j] == (1 if tile.all() else 2 if not tile.any() else 0), (i, j)
+            want = 1 if tile.all() else 2 if not tile.any() and rows_attend else 0
+            assert flags[i, j] == want, (i, j)
+    counts = {int(v): int((flags == v).sum()) for v in (0, 1, 2)}
     if kind == "d16":
-        assert {int(v): int((flags == v).sum()) for v in (0, 1, 2)} == {0: 35, 1: 286, 2: 163}
+        assert counts == {0: 35, 1: 286, 2: 163}
+    if kind == "tile_pattern":  # fully masked tiles before unmasked ones in a row
+        assert any(flags[i, j] == 2 and (flags[i, j + 1:] != 2).any()
+                   for i in range(nt) for j in range(nt))
+    if kind == "rows_without_true":  # tile rows 1 and 3 hold rows 70, 200, 201
+        assert counts[2] > 0 and not (flags[[1, 3]] == 2).any()
 
 
 def test_kernel_flags_are_checked_or_computed():

@@ -78,7 +78,7 @@ def _recorder(monkeypatch):
 
     def j_spy(*args, **kw):
         out = j_orig(*args, **kw)
-        jax.debug.callback(lambda x: calls["jax"].append(np.asarray(x)), out)
+        jax.debug.callback(lambda x: calls["jax"].append(np.asarray(x)), out, ordered=True)
         return out
 
     def t_spy(*args, **kw):

@@ -105,8 +105,40 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
     for name in ("flash_decode_prefix", "_prefix_kernel_paired", "flash_decode_inplace",
                  "_inplace_kernel"):
         assert name in prefix
+    for name in ("ops/attention.py:flash_decode_prefix", "_prefix_kernel_paired"):
+        assert name in (csrc / "decode_attention.cu").read_text()  # K5 runs K1's kernel
     flash = (csrc / "flash_attention.cu").read_text()
     for name in ("ops/attention.py:flash_attention", "_flash_kernel",
                  "ops/attention.py:flash_attention_bwd", "_flash_bwd_dq_kernel",
                  "_flash_bwd_dkv_kernel"):
         assert name in flash
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("symbol,category", [
+    ("void (anonymous namespace)::decode_attention_prefix_kernel<2>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::Rows, "
+     "unsigned char const*, __nv_bfloat16*, int, int, int, int, int, float)", "K5 prefix decode"),
+    ("void (anonymous namespace)::decode_attention_kernel<false, 2>(CUtensorMap_st, "
+     "CUtensorMap_st, (anonymous namespace)::Rows, unsigned char const*, __nv_bfloat16*, int, "
+     "int, int, int, int, float)", "K1/K8 decode attention"),
+    ("void (anonymous namespace)::decode_attention_kernel<true, 1>(...)",
+     "K1/K8 decode attention"),
+    ("void inplace::decode_inplace_kernel<2>(...)", "K6 in-place decode"),
+    ("void (anonymous namespace)::decode_flat_kernel<64, 2>(...)", "K7 flat decode attention"),
+    ("bwd::flash_bwd_dq_kernel(...)", "K4 flash attention backward"),
+    ("bwd::flash_bwd_dkv_kernel(...)", "K4 flash attention backward"),
+    ("(anonymous namespace)::flash_fwd_kernel(...)", "K3 flash attention"),
+])
+def test_profile_categories_tell_the_kernels_apart(symbol, category):
+    """chip_smoke's device-time categories: K5 runs K1's kernel body under a
+    name of its own, which must not fall into K1/K8's category."""
+    assert _chip_smoke().category(symbol) == category

@@ -92,7 +92,7 @@ def _recorder(module, monkeypatch, traced=False):
     def spy(*args, **kw):
         out = orig(*args, **kw)
         if traced:
-            jax.debug.callback(lambda x: calls.append(np.asarray(x)), out)
+            jax.debug.callback(lambda x: calls.append(np.asarray(x)), out, ordered=True)
         else:
             calls.append(out.numpy())
         return out
