@@ -13,18 +13,22 @@ Run from the root of a checkout. Phases, each fatal on failure:
      stacked cache (16 CFG rows x 24 heads) and at B*H = 70,000 heads (cur
      64, l 8); its and SDPA's device times at every serving scale and
      summed over one call (x 16);
-  4. K2 bisection sampling vs its plain version at every scale's row count,
-     then greedy, Philox and kept-set checks at the final scale, and the
-     distribution of 1e4 Philox draws (and of the unfiltered categorical,
-     whose noise is made on the card) against the analytic softmax;
+  4. K2 bisection sampling vs its plain version on the same noise at every
+     scale's row count (top-k alone: the same ids on every row; with top-p:
+     on >= 0.999 of them), on tied and on flat logits, at V = 1000, with
+     top-k 0 and top-p, and with top-k >= V; then greedy, Philox and kept-set checks at
+     the final scale, the distribution of 1e4 Philox draws (and of the
+     unfiltered categorical, whose noise is made on the card) against the
+     analytic softmax, and its device time at every scale's row count;
   5. K3 flash attention forward and K4 backward vs their plain versions at
      the d16 training shape (8, 16, 1360, 64) under the block-causal mask
      and under a random pattern of 64 x 64 tiles (fully masked tiles
      anywhere, the diagonal kept), with q, k, v and dO strided as the
      training path gives them, and at a small ragged shape under a causal
-     mask; K4 run twice on the same inputs gives the same bits; with their
-     times, the plain versions' and SDPA's (forward, and its autograd
-     backward);
+     mask; K3 also with rows that attend nowhere and at a scale that is not
+     a power of two (0.9/32); K3 and K4 each run twice on the same inputs
+     give the same bits; with their times, the plain versions' and SDPA's
+     (forward, and its autograd backward);
   6. K5 prefix decode vs its plain version at every scale's (pos, l) of
      the d24 joint path's segmented cache (16 CFG rows, 24 heads), over the
      full prefix and over the kv_window=2 one, on the views
@@ -102,6 +106,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
+PEAK_INT32_OPS = 16.7e12   # H100 SXM int32: 132 SMs x 64 INT32 lanes x 1.98 GHz
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # The attention kernels' limits (K1, K3-K8). Per element,
 # |got - want| <= 2^-7 (|want| + mag), mag = sum_j |x_j| |y_j| over the
@@ -316,6 +321,7 @@ def k2_phase(torch, V, patch_nums):
     from controlvar_tpu_torch.ops.sample_kernel import (
         gumbel_noise, kept_mask_plain, sample_bisect_plain, sample_top_k_top_p_bisect)
     from controlvar_tpu_torch.ops.sampling import sample_top_k_top_p
+    from controlvar_tpu_torch.probes.decode_scales import graph_ms
 
     n, top_k, top_p = 16 * 3 * patch_nums[-1] ** 2, 900, 0.96
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -324,17 +330,52 @@ def k2_phase(torch, V, patch_nums):
     gen = lambda seed: torch.Generator().manual_seed(seed)
 
     noise = gumbel_noise((n, V), gen(3), "cuda")
-    # the same noise to both, at every scale's row count (B * 3 * pn^2)
+
+    def agree(name, l, nz, k, p, every_row):
+        """ids of the kernel and of the plain version on the same noise: equal
+        on every row (top-k alone: the kernel's threshold is the bisection's
+        bit for bit), or on >= 0.999 of the rows (top-p: the kept mass is
+        summed in another order, which may move the crossing); every draw in
+        the plain kept set. Returns the share of rows that differ."""
+        ids_k = sample_top_k_top_p_bisect(l, k, p, noise=nz)
+        ids_p = sample_bisect_plain(l, nz, k, p)
+        share = float((ids_k == ids_p).float().mean())
+        print(f"K2 {name} (top-k {k}, top-p {p}), {l.shape[0]}x{l.shape[1]}: ids equal on "
+              f"{share * l.shape[0]:.0f}/{l.shape[0]} rows ({share:.6f})")
+        if every_row and share < 1.0:
+            fail(f"K2 {name}: ids differ from the plain version's on "
+                 f"{l.shape[0] - round(share * l.shape[0])} rows")
+        if share < 0.999:
+            fail(f"K2 {name}: ids agree on only {share:.6f} of {l.shape[0]} rows")
+        if not bool(kept_mask_plain(l, k, p).gather(1, ids_k[:, None]).all()):
+            fail(f"K2 {name}: a drawn id lies outside the plain kept set")
+        return 1.0 - share
+
+    # the same noise to both, at every scale's row count (B * 3 * pn^2), with
+    # top-k alone and with top-p
     mismatch = 0.0
     for pn in patch_nums:
         m = 16 * 3 * pn * pn
-        ids_k = sample_top_k_top_p_bisect(logits[:m], top_k, top_p, noise=noise[:m])
-        ids_p = sample_bisect_plain(logits[:m], noise[:m], top_k, top_p)
-        agree = float((ids_k == ids_p).float().mean())
-        print(f"K2 noise input, {m} rows: ids equal on {agree * m:.0f}/{m} ({agree:.6f})")
-        if agree < 0.999:
-            fail(f"K2: ids agree on only {agree:.6f} of {m} rows")
-        mismatch = max(mismatch, 1.0 - agree)
+        agree(f"{pn}x{pn} scale", logits[:m], noise[:m], top_k, 0.0, True)
+        mismatch = max(mismatch, agree(f"{pn}x{pn} scale", logits[:m], noise[:m], top_k,
+                                       top_p, False))
+    # ties (values on a grid of 1/4), V = 1000, top-k 0 with top-p, top-k >= V,
+    # and flat rows (N(0, 0.01)), where a token more or less at the top-k
+    # threshold is drawn often
+    tied = torch.round(4.0 * logits[:4096]) / 4.0
+    narrow = logits[:4096, :1000].contiguous()
+    flat = 0.01 * torch.randn(4096, V, generator=g, device="cuda")
+    for name, l, k, p, every_row in (("tied logits", tied, top_k, 0.0, True),
+                                     ("flat logits", flat, 50, 0.0, True),
+                                     ("flat logits", flat, 50, 0.5, False),
+                                     ("tied logits", tied, top_k, top_p, False),
+                                     ("V = 1000", narrow, top_k, 0.0, True),
+                                     ("V = 1000", narrow, top_k, top_p, False),
+                                     ("no top-k", logits[:4096], 0, top_p, False),
+                                     ("top-k >= V", logits[:4096], V, 0.0, True),
+                                     ("top-k >= V", logits[:4096], V + 100, top_p, False)):
+        mismatch = max(mismatch, agree(name, l, noise[:l.shape[0], :l.shape[1]].contiguous(),
+                                       k, p, every_row))
 
     greedy = sample_top_k_top_p_bisect(logits, 1, 0.0, generator=gen(4))
     if not torch.equal(greedy, logits.argmax(-1)):
@@ -348,9 +389,8 @@ def k2_phase(torch, V, patch_nums):
     if torch.equal(a, c):
         fail("K2 Philox: two seeds gave the same ids")
     kept = kept_mask_plain(logits, top_k, top_p)
-    for name, ids in (("Philox", a), ("noise input", ids_k)):
-        if not bool(kept.gather(1, ids[:, None]).all()):
-            fail(f"K2 {name}: a drawn id lies outside the plain kept set")
+    if not bool(kept.gather(1, a[:, None]).all()):
+        fail("K2 Philox: a drawn id lies outside the plain kept set")
     print(f"K2: greedy == argmax, Philox draws deterministic per seed, all in "
           f"the kept set (mean kept {float(kept.sum(-1).float().mean()):.1f} ids/row)")
 
@@ -370,15 +410,29 @@ def k2_phase(torch, V, patch_nums):
     tv_check("unfiltered categorical, broad row", broad, ids,
              torch.ones(V, dtype=torch.bool, device="cuda"))
 
+    # device time at every scale's row count (Philox, as the path calls it;
+    # CUDA graphs, since host dispatch exceeds the small scales' launches)
+    per_scale = [graph_ms(lambda: sample_top_k_top_p_bisect(logits[:16 * 3 * pn * pn], top_k,
+                                                              top_p, generator=gen(7)))
+                 for pn in patch_nums]
+    print("K2 per scale (rows: ms): " + ", ".join(
+        f"{16 * 3 * pn * pn}: {t:.4f}" for pn, t in zip(patch_nums, per_scale))
+          + f"; one call's 10 launches {sum(per_scale):.4f} ms")
     ms = cuda_ms(lambda: sample_top_k_top_p_bisect(logits, top_k, top_p, generator=gen(7)), 20)
     plain_ms = cuda_ms(lambda: sample_bisect_plain(logits, noise, top_k, top_p), 3)
+    # The function's work: one read of the logits and the ids written; per
+    # logit the max, the two filters' compares, and x - m and its exp (5
+    # fp32 operations); per kept logit (the plain kept set of these logits)
+    # Philox4x32-10 (10 rounds of 2 mul.hi, 2 mul.lo, 4 xor and 2 adds: 100
+    # int32 operations) and the draw (the uniform's convert and multiply-add,
+    # two logs, two negations and the add: 7 fp32 operations). fp32 at 67
+    # TFLOP/s; int32 at 132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7 TOPS.
+    n_kept = float(kept.sum())
     nbytes = 4 * n * V + 8 * n
-    # per logit: the max, 26 top-k and 26 top-p compare-and-accumulate steps
-    # (2 ops each), the exp and the masked add of the draw
-    ops = n * V * (1 + 2 * 26 + 2 * 26 + 1 + 2)
-    b_ms, b_by = bound_ms(nbytes, ops, PEAK_FP32_FLOPS)
+    t_ops = (5 * n * V + 7 * n_kept) / PEAK_FP32_FLOPS + 100 * n_kept / PEAK_INT32_OPS
+    b_ms, b_by = bound_ms(nbytes, t_ops, 1.0)
     print(f"K2 final scale ({n}x{V}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by})")
+          f"bound {b_ms:.4f} ms ({b_by}; {n_kept:.0f} kept logits)")
     return dict(name="sample_top_k_top_p_bisect", route="cuda",
                 source="controlvar_tpu_torch/csrc/sample_bisect.cu",
                 replaces="controlvar_tpu/ops/sample_kernel.py:126",
@@ -451,17 +505,29 @@ def flash_phase(torch, cfg):
               torch.ones(100, 100, dtype=torch.bool, device=dev).tril(), False),
              ("random 64x64 tile pattern (8, 16, 1360, 64), strided", 8, cfg.num_heads,
               tile_pattern_mask(cfg.seq_len), True)]
-    errs3, errs4 = [], []
-    for name, B, H, mask, strided in cases:
-        q, k, v, do = inputs(B, H, mask.shape[0], strided)
-        out, lse = flash_attention(q, k, v, mask, scale)
-        want, want_lse = flash_attention_plain(q, k, v, mask, scale)
-        mag = flash_attention_plain(q, k, v.abs(), mask, scale)[0]
-        errs3.append(check_close(f"K3 {name}: out", out, want, mag))
+
+    def check_k3(name, q, k, v, mask, sc, out, lse):
+        """K3's out and lse against the plain version's, and a second run on
+        the same inputs bit-equal to the first; returns out's largest error."""
+        want, want_lse = flash_attention_plain(q, k, v, mask, sc)
+        mag = flash_attention_plain(q, k, v.abs(), mask, sc)[0]
+        err = check_close(f"K3 {name}: out", out, want, mag)
         lse_err = float((lse - want_lse).abs().max())
         print(f"K3 {name}: lse max_abs_err={lse_err:.3e}")
         if not lse_err <= K3_LSE_ATOL:
             fail(f"K3 {name}: lse error {lse_err:.3e} > {K3_LSE_ATOL:g}")
+        again, again_lse = flash_attention(q, k, v, mask, sc)
+        if not (torch.equal(out, again) and torch.equal(lse, again_lse)):
+            fail(f"K3 {name}: out or lse differs between two runs on the same inputs")
+        print(f"K3 {name}: out, lse bit-equal over two runs")
+        return err
+
+    errs3, errs4 = [], []
+    for name, B, H, mask, strided in cases:
+        q, k, v, do = inputs(B, H, mask.shape[0], strided)
+        out, lse = flash_attention(q, k, v, mask, scale)
+        errs3.append(check_k3(name, q, k, v, mask, scale, out, lse))
+        want, want_lse = flash_attention_plain(q, k, v, mask, scale)
         # K4 from the plain forward's out and lse, so only K4 differs
         got = flash_attention_bwd(q, k, v, mask, want, want_lse, do, scale)
         ref = flash_attention_bwd_plain(q, k, v, mask, want, want_lse, do, scale)
@@ -477,8 +543,19 @@ def flash_phase(torch, cfg):
                 fail(f"K4 {name}: {gname} differs between two runs on the same inputs")
         print(f"K4 {name}: dq, dk, dv bit-equal over two runs")
 
-    # times at the training path's shapes, strides and precomputed flags
+    # K3 alone: rows that attend nowhere (the TPU kernel's P = 1 on every
+    # key; their tiles are never skipped), and a scale that is not a power of
+    # two (q*scale is rounded to bf16 in the kernel)
     B, H, L = 8, cfg.num_heads, cfg.seq_len
+    nowhere = train_mask.clone()
+    nowhere[[0, 70, 700, 1359]] = False
+    for name, mask, sc in (("d16 train, rows 0, 70, 700, 1359 attend nowhere", nowhere, scale),
+                           ("d16 train, block-causal, scale 0.9/32", train_mask, 0.9 / 32)):
+        q, k, v, _ = inputs(B, H, L, True)
+        out, lse = flash_attention(q, k, v, mask, sc)
+        errs3.append(check_k3(name, q, k, v, mask, sc, out, lse))
+
+    # times at the training path's shapes, strides and precomputed flags
     q, k, v, do = inputs(B, H, L, True)
     flags = tile_flags(train_mask)
     out, lse = flash_attention(q, k, v, train_mask, scale, flags)

@@ -17,13 +17,34 @@
 // needs 10 hd per unmasked score (0.095 ms) and its two passes compute 14
 // (S and dP in both): the tensor cores bound both.
 //
-// K3's design (flash_fwd_kernel, after the first decode kernel): one block
-// of 4 warps owns a 64-row output tile, each warp 16 rows, and streams K/V
-// through shared memory in 64-row tiles, double-buffered with cp.async
-// (rows past L are zero-filled, and their scores set to -inf, so the ragged
-// last tile needs no padded copies); mma.sync m16n8k16 bf16 with fp32
-// accumulators; scores, probabilities and the accumulators stay in
-// registers. Every tile of the L x L score matrix is computed, as on the TPU.
+// K3's design (namespace fwd) is K4's dq pass with the forward's products.
+// One block per (64-row q tile, batch*head), numbered with the q tile
+// fastest and the last first (under the block-causal mask the later q
+// rows walk the most tiles); a block is one consumer warpgroup and one
+// producer warpgroup that gives its registers to the consumers (setmaxnreg)
+// and streams the K and V tiles by TMA (128-byte swizzle) through a 3-stage
+// mbarrier ring. Producer and consumers walk only the K/V tiles of the q
+// tile's row of the flags that are not flagged 2 (fully masked). The
+// consumer warpgroup stages q*scale rounded to bf16 (the TPU kernel's
+// rounding point, so any scale) as a swizzled shared tile; S = q K^T is
+// wgmma m64n64k16 with both operands in shared memory, O += P V takes P
+// from registers (bf16) and the V tile as B stored MN-major, and P.V of one
+// tile and S of the next go to the tensor cores in one flight. The softmax
+// is online in base 2 (ex2 of one FFMA a score); in a tile that holds
+// masked scores (-1e30) those take their row's exponent (-1e30 - m) log2e
+// instead: 0 where the row has a real score and 1 where it has none (the
+// TPU kernel's exp(-1e30 - m)), which the FFMA cannot give at m = -1e30
+// (its rounding of m log2e is ~1e23). Skipping a tile flagged 2 is exact:
+// tile_flags gives 2 only where every row of the tile attends somewhere, so
+// its p are 0 for every row, and where such a tile would come first a later
+// alpha = 0 wipes it. Three blocks an SM: measured at the d16 shape, this
+// beat two consumer warpgroups sharing a 128-row block's tiles (at one or
+// two blocks an SM), two blocks an SM, four blocks with a 2-stage ring
+// (which spilled), and the next tile's q.K^T issued before each softmax
+// (PERF.md §11.6). ptxas (CUDA 12.8, sm_90a): 80 registers a thread at
+// launch (136 for the consumers after setmaxnreg), no spills, no
+// serialised wgmma; 58,368 bytes of dynamic shared memory (the 48 KB ring,
+// the q tile, 1 KB of alignment).
 //
 // K4's design (namespace bwd) is Hopper's, after the TMA/wgmma decode
 // kernels (decode_attention.cu). It keeps the TPU's split: the dq pass owns
@@ -58,8 +79,7 @@
 // the tile has no False, 2 where it has no True (and every row of its q
 // rows has a True elsewhere, so P = 0 exactly on it), else 0. Tiles flagged
 // 1 or 2 read no mask bytes, which otherwise cost a load per score (97% of
-// the d16 mask's tiles); K3 computes tiles flagged 2 as fully masked, K4
-// skips them.
+// the d16 mask's tiles); K3 and K4 skip the tiles flagged 2.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <cuda_bf16.h>
@@ -72,244 +92,7 @@ namespace {
 constexpr int HD = 64;        // head dim
 constexpr int BR = 64;        // rows of the tile a block owns
 constexpr int BC = 64;        // rows of each streamed tile
-constexpr int WARPS = BR / 16;
-constexpr int THREADS = WARPS * 32;
-constexpr int LDS = HD + 8;   // padded shared-memory row (bank-conflict free)
-constexpr float NEG_INF = -1e30f;  // masked score, as the TPU kernels
-
 typedef __nv_bfloat16 bf16;
-
-// (batch, head, row) strides of a (B, H, L, 64) operand whose last dim is dense
-struct Strides {
-  long long b, h, r;
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int src_size = valid ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(src_size));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ void zero(float (&acc)[HD / 8][4]) {
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-}
-
-// A fragments (16 rows x 64) of a warp's rows [row0, row0 + 16) of one
-// (batch, head) operand, times `scale` and rounded to bf16; rows past L are 0
-__device__ __forceinline__ void load_a(uint32_t (&a)[HD / 16][4], const bf16* base,
-                                       long long sr, int row0, int L, float scale,
-                                       int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = row0 + g + (j & 1) * 8, c = kk * 16 + 2 * t + (j >> 1) * 8;
-      float2 f = make_float2(0.f, 0.f);
-      if (r < L) {
-        f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(base + r * sr + c));
-      }
-      a[kk][j] = pack_bf16(f.x * scale, f.y * scale);
-    }
-  }
-}
-
-// acc (16 x 8n) = A (16 x 64) . T^T, T a 64-row shared tile read as the
-// "col" B operand (row n of T is column n of B)
-__device__ __forceinline__ void mma_abt(float (&acc)[BC / 8][4], const uint32_t (&a)[HD / 16][4],
-                                        const bf16* tile, int g, int t) {
-#pragma unroll
-  for (int n = 0; n < BC / 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    const bf16* row = tile + (n * 8 + g) * LDS + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(row + kk * 16);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(row + kk * 16 + 8);
-      mma_bf16(acc[n], a[kk], b0, b1);
-    }
-  }
-}
-
-// acc (16 x 64) += X (16 x 64, fp32 C fragments, rounded to bf16 here) . T,
-// T a 64-row shared tile read through ldmatrix.trans as the "row" B operand
-__device__ __forceinline__ void mma_xt(float (&acc)[HD / 8][4], const float (&x)[BC / 8][4],
-                                       const bf16* tile, int lane) {
-#pragma unroll
-  for (int kc = 0; kc < BC / 16; ++kc) {
-    const uint32_t xa[4] = {pack_bf16(x[2 * kc][0], x[2 * kc][1]),
-                            pack_bf16(x[2 * kc][2], x[2 * kc][3]),
-                            pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]),
-                            pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3])};
-    const unsigned addr = (unsigned)__cvta_generic_to_shared(tile + (kc * 16 + (lane & 15)) * LDS);
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      uint32_t b0, b1;
-      asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                   : "=r"(b0), "=r"(b1) : "r"(addr + n * 16));
-      mma_bf16(acc[n], xa, b0, b1);
-    }
-  }
-}
-
-// issue the cp.async copies of rows [r0, r0 + 64) of two (B, H, L, 64)
-// operands of one (batch, head) into shared tiles
-__device__ __forceinline__ void load_tiles(bf16* ta, const bf16* a, long long a_sr,
-                                           bf16* tb, const bf16* b, long long b_sr,
-                                           int r0, int L, int tid) {
-  for (int i = tid; i < BC * HD / 8; i += THREADS) {
-    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
-    const bool valid = r0 + r < L;
-    const long long rr = valid ? r0 + r : 0;
-    cp_async16(&ta[r * LDS + c], a + rr * a_sr + c, valid);
-    cp_async16(&tb[r * LDS + c], b + rr * b_sr + c, valid);
-  }
-}
-
-// Scores of a warp's 16 x 64 C-fragment tile (rows r0 + g + {0, 8},
-// columns t0 + 8n + 2t + {0, 1}, as mma lays them out): masked ones to
-// -1e30, as the TPU kernels, and columns past L to -inf, which weighs them 0.
-// `flag` is the tile's: 1 (no False) and 2 (no True) read no mask bytes, 0
-// reads one per score.
-__device__ __forceinline__ void apply_mask(float (&s)[BC / 8][4], const uint8_t* mask,
-                                           uint8_t flag, int r0, int t0, int g, int t, int L) {
-  if (flag == 1 && t0 + BC <= L) return;
-#pragma unroll
-  for (int n = 0; n < BC / 8; ++n) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = t0 + n * 8 + 2 * t + (j & 1), r = r0 + g + (j >> 1) * 8;
-      if (col >= L) {
-        s[n][j] = -CUDART_INF_F;
-      } else if (flag == 2 || (flag == 0 && r < L && !mask[(long long)r * L + col])) {
-        s[n][j] = NEG_INF;
-      }
-    }
-  }
-}
-
-// K3: one block per (64-row q tile, batch*head)
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, Strides qs_, const bf16* __restrict__ k,
-                 Strides ks_, const bf16* __restrict__ v, Strides vs_,
-                 const uint8_t* __restrict__ mask,   // (L, L)
-                 const uint8_t* __restrict__ flags,  // (nt, nt), see apply_mask
-                 bf16* __restrict__ out,             // (B*H, L, HD)
-                 float* __restrict__ lse,            // (B*H, L)
-                 int H, int L, float scale) {
-  __shared__ __align__(128) bf16 kt_s[2][BC * LDS];
-  __shared__ __align__(128) bf16 vt_s[2][BC * LDS];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int row0 = blockIdx.y * BR + warp * 16;
-  const bf16* kb = k + b * ks_.b + h * ks_.h;
-  const bf16* vb = v + b * vs_.b + h * vs_.h;
-
-  load_tiles(kt_s[0], kb, ks_.r, vt_s[0], vb, vs_.r, 0, L, tid);
-  cp_async_commit();
-
-  uint32_t qa[HD / 16][4];
-  load_a(qa, q + b * qs_.b + h * qs_.h, qs_.r, row0, L, scale, g, t);
-
-  float o[HD / 8][4];
-  zero(o);
-  float m_run[2] = {NEG_INF, NEG_INF}, l_part[2] = {0.f, 0.f};  // rows g, g+8
-
-  const int ntiles = (L + BC - 1) / BC;
-  for (int it = 0; it < ntiles; ++it) {
-    const int buf = it & 1, t0 = it * BC;
-    if (it + 1 < ntiles) {
-      load_tiles(kt_s[buf ^ 1], kb, ks_.r, vt_s[buf ^ 1], vb, vs_.r, t0 + BC, L, tid);
-    }
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-
-    float s[BC / 8][4];
-    mma_abt(s, qa, kt_s[buf], g, t);
-
-    // mask (-1e30, as the TPU kernel) and the ragged end (-inf: weight 0)
-    apply_mask(s, mask, flags[blockIdx.y * ntiles + it], row0, t0, g, t, L);
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int n = 0; n < BC / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mx[j >> 1] = fmaxf(mx[j >> 1], s[n][j]);
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m_run[i], quad_max(mx[i]));
-      alpha[i] = __expf(m_run[i] - m_new);
-      m_run[i] = m_new;
-      l_part[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int n = 0; n < BC / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[n][j] = __expf(s[n][j] - m_run[j >> 1]);
-        l_part[j >> 1] += s[n][j];
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
-    }
-    mma_xt(o, s, vt_s[buf], lane);  // O += P V, P rounded to bf16
-    __syncthreads();  // this buffer is refilled two tiles on
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row0 + g + i * 8;
-    const float l = fmaxf(quad_sum(l_part[i]), 1e-30f);
-    if (r < L) {
-      bf16* orow = out + ((long long)bh * L + r) * HD + 2 * t;
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
-            __floats2bfloat162_rn(o[n][2 * i] / l, o[n][2 * i + 1] / l);
-      }
-      if (t == 0) lse[(long long)bh * L + r] = m_run[i] + logf(l);
-    }
-  }
-}
 
 }  // namespace
 
@@ -762,12 +545,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qm,
 // setmaxnreg.inc would wait forever for registers the block never had:
 // check ptxas's count, then allow the dynamic shared memory
 template <typename Kernel>
-cudaError_t prepare(Kernel kernel) {
+cudaError_t prepare(Kernel kernel, int launch_regs = LAUNCH_REGS, int smem = SMEM_BYTES) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  if (attr.numRegs != LAUNCH_REGS) return cudaErrorInvalidConfiguration;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (attr.numRegs != launch_regs) return cudaErrorInvalidConfiguration;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 // rows [0, L) of a strided (B, H, L, 64) operand as a TMA map of 64 x 64 tiles
@@ -779,22 +562,263 @@ bool rows_map(CUtensorMap* map, const void* p, long long sb, long long sh, long 
 
 }  // namespace bwd
 
+// K3 (the forward) on Hopper: TMA tiles and wgmma over the tiles that are
+// not fully masked.
+namespace fwd {
+
+using hopper::fence_regs;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_wait;
+using hopper::smem_desc;
+using hopper::smem_u32;
+
+constexpr int BLOCKS = 3;                // blocks an SM
+constexpr int STAGES = 3;                // the TMA ring
+constexpr int TILE = BC * HD * 2;        // bytes of one 64 x 64 bf16 tile
+constexpr float L2E = 1.4426950408889634f;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int THREADS = 256;             // a consumer and a producer warpgroup
+
+// the ring (a K and a V tile a stage), the q tile and alignment to 1024
+constexpr int SMEM_BYTES = STAGES * 2 * TILE + TILE + 1024;
+
+// Registers: BLOCKS blocks an SM, so each thread starts with LAUNCH_REGS of
+// the SM's 64K (ptxas allocates exactly that to a kernel that uses
+// setmaxnreg: bwd::prepare checks it); the producer keeps 24 and the
+// consumers take what that frees, 136, for O and S (32 fp32 each) and P's
+// bf16 fragments in flight.
+constexpr int LAUNCH_REGS = 65536 / (BLOCKS * THREADS) / 8 * 8;
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = (LAUNCH_REGS * THREADS - PRODUCER_REGS * 128) / 128 / 8 * 8;
+
+// hopper::softmax_tile_ex2 for a tile that holds masked scores (-1e30):
+// those take their row's exponent (-1e30 - m) log2e, so P = 0 where the row
+// has a real score and P = 1 where it has none, as the TPU kernel's
+// exp(-1e30 - m) (fmaf(-1e30, log2e, -m log2e) at m = -1e30 is off by the
+// rounding of m log2e, ~1e23, either way)
+__device__ __forceinline__ void softmax_tile_masked(float (&s)[32], float (&m_run)[2],
+                                                    float (&l_part)[2], float (&alpha)[2],
+                                                    uint32_t (&pa)[4][4]) {
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float neg_ml[2], cm[2];  // -m log2e and the masked exponent of rows g and g + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m_run[r], hopper::quad_max(mx[r]));
+    alpha[r] = hopper::ex2_approx((m_run[r] - m_new) * L2E);
+    m_run[r] = m_new;
+    l_part[r] *= alpha[r];
+    neg_ml[r] = -m_new * L2E;
+    cm[r] = (hopper::NEG_INF - m_new) * L2E;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = hopper::ex2_approx(s[i] == hopper::NEG_INF ? cm[r] : fmaf(s[i], L2E, neg_ml[r]));
+    l_part[r] += s[i];
+  }
+  hopper::pack_a(s, pa);
+}
+
+// One block per (64-row q tile, batch*head), numbered with the q tile
+// fastest, last tile first.
+__global__ void __launch_bounds__(THREADS, BLOCKS)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap km, const __grid_constant__ CUtensorMap vm,
+                 bwd::Rows q, const uint8_t* __restrict__ mask,   // (L, L)
+                 const uint8_t* __restrict__ flags,               // (nt, nt)
+                 bf16* __restrict__ out,                          // (B*H, L, HD)
+                 float* __restrict__ lse,                         // (B*H, L)
+                 int H, int L, int nt, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;  // stage s: K, then V
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = __shfl_sync(FULL_MASK, tid / 32, 0);  // warp-uniform, as ptxas sees it
+  const int bh = blockIdx.x / nt, b = bh / H, h = bh % H;
+  const int qt = nt - 1 - (int)(blockIdx.x % nt);
+  const uint8_t* frow = flags + (long long)qt * nt;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(smem_u32(&full[s]), 1);
+      hopper::mbar_init(smem_u32(&empty[s]), 4);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4) {  // the producer warpgroup; one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (warp == 4 && lane == 0) {
+      hopper::prefetch_tensormap(&km);
+      hopper::prefetch_tensormap(&vm);
+      int it = 0;
+      for (int j = bwd::first_tile(frow, 1, nt); j < nt; j = bwd::next_tile(frow, 1, j + 1, nt),
+               ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(smem_u32(&empty[s]), (it / STAGES - 1) & 1);
+        const uint32_t dst = ring + s * 2 * TILE, bar = smem_u32(&full[s]);
+        mbar_expect_tx(bar, 2 * TILE);
+        hopper::tma_load_4d(dst, &km, bar, 0, j * BC, h, b);
+        hopper::tma_load_4d(dst + TILE, &vm, bar, 0, j * BC, h, b);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = qt * BR + warp * 16;         // this warp's first q row
+  const uint32_t qtile = ring + STAGES * 2 * TILE;
+  const bf16* qb = q.p + b * q.sb + h * q.sh;
+  // q*scale rounded to bf16 (rows past L are zero) as a 64 x 64 K-major
+  // tile in TMA's 128-byte swizzle: q.K^T's A operand
+#pragma unroll
+  for (int i = tid % 128; i < BR * HD / 8; i += 128) {
+    const int r = i / (HD / 8), c = i % (HD / 8);  // row, 16-byte chunk
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (qt * BR + r < L) {
+      v = *reinterpret_cast<const uint4*>(qb + (long long)(qt * BR + r) * q.sr + 8 * c);
+    }
+    uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+      w[j] = hopper::pack_bf16(f.x * scale, f.y * scale);
+    }
+    const uint32_t dst = qtile + (r / 8) * 1024 + (r % 8) * 128 + ((c ^ (r % 8)) * 16);
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                 :: "r"(dst), "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3]) : "memory");
+  }
+  hopper::fence_proxy_async();
+  hopper::named_sync(1, 128);  // the warpgroup's tile is whole
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  fence_regs(o);  // defined before any wgmma is in flight
+  float m_run[2] = {hopper::NEG_INF, hopper::NEG_INF}, l_part[2] = {0.f, 0.f};
+
+  // S = (q*scale) K^T; P.V of tile j and S of tile j + 1 go to the tensor
+  // cores back to back, and one wait covers both
+  float sc[BC / 2];
+  auto issue_s = [&](uint32_t kt) {
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      hopper::WgmmaSS<BC>::run(sc, smem_desc(qtile + 32 * kk), smem_desc(kt + 32 * kk), kk > 0);
+    }
+    hopper::wgmma_commit();
+  };
+  int j = __shfl_sync(FULL_MASK, bwd::first_tile(frow, 1, nt), 0);
+  mbar_wait(smem_u32(&full[0]), 0);
+  issue_s(ring);
+  for (int it = 0; j < nt; ++it) {
+    const int jn = __shfl_sync(FULL_MASK, bwd::next_tile(frow, 1, j + 1, nt), 0);
+    const int f = __shfl_sync(FULL_MASK, (int)frow[j], 0);
+    const uint32_t vt = ring + (it % STAGES) * 2 * TILE + TILE;
+    hopper::wgmma_wait0();  // S of this tile, P.V of the last one
+    fence_regs(sc);
+    fence_regs(o);
+    if (it > 0 && lane == 0) mbar_arrive(smem_u32(&empty[(it - 1) % STAGES]));
+
+    // the mask (-1e30) and keys past L (-inf: weight 0), as selects
+    const int c0 = j * BC;
+    if (f == 0) {  // rows past L read row L - 1: they are not stored
+#pragma unroll
+      for (int i = 0; i < BC / 2; ++i) {
+        const int r = min(row0 + g + 8 * ((i >> 1) & 1), L - 1);
+        const int col = min(c0 + 8 * (i >> 2) + 2 * t + (i & 1), L - 1);
+        sc[i] = mask[(long long)r * L + col] ? sc[i] : hopper::NEG_INF;
+      }
+    } else if (f == 2) {
+#pragma unroll
+      for (int i = 0; i < BC / 2; ++i) sc[i] = hopper::NEG_INF;
+    }
+    if (c0 + BC > L) {
+#pragma unroll
+      for (int i = 0; i < BC / 2; ++i) {
+        sc[i] = c0 + 8 * (i >> 2) + 2 * t + (i & 1) >= L ? -CUDART_INF_F : sc[i];
+      }
+    }
+    float alpha[2];
+    uint32_t pa[BC / 16][4];
+    if (f == 1) {
+      hopper::softmax_tile_ex2(sc, m_run, l_part, alpha, pa);
+    } else {
+      softmax_tile_masked(sc, m_run, l_part, alpha, pa);
+    }
+    hopper::scale_rows(o, alpha);
+
+    // O += P V: the V tile [key][hd] is B stored MN-major
+    fence_regs(o);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BC / 16; ++kc) {
+      hopper::WgmmaRS<HD, 1>::run(o, pa[kc], smem_desc(vt + 2048 * kc), 1);
+    }
+    hopper::wgmma_commit();
+    if (jn < nt) {
+      const int s1 = (it + 1) % STAGES;
+      mbar_wait(smem_u32(&full[s1]), ((it + 1) / STAGES) & 1);
+      issue_s(ring + s1 * 2 * TILE);
+    }
+    j = jn;
+  }
+  hopper::wgmma_wait0();
+  fence_regs(o);
+
+  // out = O / l in bf16, lse = m + ln(l) (natural log, as K4 reads it)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + g + 8 * i;
+    const float l = fmaxf(hopper::quad_sum(l_part[i]), 1e-30f);
+    if (r < L) {
+      bf16* orow = out + ((long long)bh * L + r) * HD + 2 * t;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+            __floats2bfloat162_rn(o[4 * n + 2 * i] / l, o[4 * n + 2 * i + 1] / l);
+      }
+      if (t == 0) lse[(long long)bh * L + r] = m_run[i] + logf(l);
+    }
+  }
+}
+
+}  // namespace fwd
+
 // Each entry launches on `stream` and returns cudaGetLastError() (0 on
 // success). q, k, v and dO are (B, H, L, 64) bf16 with a dense last dim,
 // passed with their (batch, head, row) strides; out, dq, dk and dv are dense
 // (B*H, L, 64) bf16; lse and D are dense (B*H, L) fp32; mask is (L, L) bool
 // and flags (nt, nt) uint8, nt = ceil(L / 64), one per 64 x 64 tile of the
-// mask: 1 where it has no False, 2 where it has no True, else 0.
+// mask: 1 where it has no False, 2 where it has no True, else 0. K3 takes
+// any scale (q*scale is rounded to bf16 in the kernel); its k and v are
+// read by TMA, so their strides are multiples of 16 bytes and their bases
+// 16-byte aligned; returns cudaErrorInvalidValue when a tensor map cannot
+// be made.
 extern "C" int flash_fwd_bf16(const void* q, long long q_sb, long long q_sh, long long q_sr,
                               const void* k, long long k_sb, long long k_sh, long long k_sr,
                               const void* v, long long v_sb, long long v_sh, long long v_sr,
                               const void* mask, const void* flags, void* out, void* lse,
                               int B, int H, int L, float scale, void* stream) {
-  dim3 grid(B * H, (L + BR - 1) / BR);
-  flash_fwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, Strides{q_sb, q_sh, q_sr}, (const bf16*)k, Strides{k_sb, k_sh, k_sr},
-      (const bf16*)v, Strides{v_sb, v_sh, v_sr}, (const uint8_t*)mask, (const uint8_t*)flags,
-      (bf16*)out, (float*)lse, H, L, scale);
+  static cudaError_t ready = cudaErrorNotReady;  // one card a process
+  if (ready == cudaErrorNotReady) {
+    ready = bwd::prepare(fwd::flash_fwd_kernel, fwd::LAUNCH_REGS, fwd::SMEM_BYTES);
+  }
+  if (ready != cudaSuccess) return (int)ready;
+  CUtensorMap km, vm;
+  if (!bwd::rows_map(&km, k, k_sb, k_sh, k_sr, B, H, L) ||
+      !bwd::rows_map(&vm, v, v_sb, v_sh, v_sr, B, H, L)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int nt = (L + BR - 1) / BR;
+  const long long items = (long long)nt * B * H;
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  fwd::flash_fwd_kernel<<<(unsigned)items, fwd::THREADS, fwd::SMEM_BYTES, (cudaStream_t)stream>>>(
+      km, vm, bwd::Rows{(const bf16*)q, q_sb, q_sh, q_sr}, (const uint8_t*)mask,
+      (const uint8_t*)flags, (bf16*)out, (float*)lse, H, L, nt, scale);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,16 @@ bisection on the two monotone step functions the filters need:
 then draws by gumbel-max over the kept set, which is a categorical over the
 kept logits. Entries more than TAIL_NATS below the row max are never kept.
 
-On a CUDA tensor it launches `csrc/sample_bisect.cu`; the noise is either an
+On a CUDA tensor it launches `csrc/sample_bisect.cu`, which reaches the same
+thresholds without the 52 reductions: the top-k test count(l >= mid) >= k
+holds exactly when the k-th largest logit is >= mid, and the top-p test
+holds exactly when mid lies below the largest logit whose mass at or above
+it reaches top_p * Z, so it finds those two values by selection (an exact
+integer histogram over bins of the value range, then the crossing bin's
+entries ranked) and replays the 26 midpoints against them. The top-k threshold is the
+bisection's bit for bit; the top-p mass is summed exactly (in fixed point),
+where the plain version sums fp32 in its own order, so a row whose crossing
+that order moves may keep one token more or less. The noise is either an
 (n, V) fp32 input, or made by the kernel's own Philox from two seed words
 drawn from the caller's CPU `torch.Generator` (the main path). On a CPU
 tensor it takes `sample_bisect_plain`: `kept_mask_plain` plus gumbel-max.

@@ -1,5 +1,6 @@
 """Device time of the decode kernels K1, K5, K6, K7 and K8 at every scale
-of their paths, and of the flash-attention backward K4, beside SDPA.
+of their paths and of the flash-attention forward K3 and backward K4,
+beside SDPA, and of the sampler K2 at every scale's row count.
 
     python3 controlvar_tpu_torch/probes/decode_scales.py [--root DIR] [--kernels K1,K5]
 
@@ -22,9 +23,14 @@ contiguous K/V made outside the time. K4 runs at the d16 training shape (8,
 training path gives them, beside SDPA's autograd backward, each timed over
 20 calls between two CUDA events, and its device time split by kernel (its
 two passes, and any other kernel a call launches) with torch.profiler.
-Prints one JSON line: per decode kernel the (l or pos, cur or l, kernel
-ms, SDPA ms) of each scale and the sums over one call (each scale's time
-times the depth); K4's and SDPA's ms and K4's split.
+K3 runs at the same shape beside SDPA's forward (CUDA events, 20 calls).
+K2 runs at each scale's row count of the d16 serving path (16 x 3 x pn^2
+rows of 4096 fp32 logits, 3 N(0, 1) with a head of 8 raised by 10, as
+chip_smoke.py makes them), with top-k 900, top-p 0.96 and its Philox, each
+time from a CUDA graph. Prints one JSON line: per decode kernel the (l or
+pos, cur or l, kernel ms, SDPA ms) of each scale and the sums over one call
+(each scale's time times the depth); K3's and K4's ms beside SDPA's, and
+K4's split; K2's ms per row count and their sum over one call.
 """
 from __future__ import annotations
 
@@ -113,7 +119,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
-    ap.add_argument("--kernels", default="K1,K4,K5,K6,K7,K8")
+    ap.add_argument("--kernels", default="K1,K2,K3,K4,K5,K6,K7,K8")
     args = ap.parse_args()
     root, kernels = os.path.abspath(args.root), args.kernels.split(",")
     sys.path.insert(0, root)
@@ -181,6 +187,32 @@ def main() -> None:
         out["K4 d16 train, device ms a call by kernel"] = kernel_split(
             bwd, ("flash_bwd_dq", "flash_bwd_dkv"))
         del qkv, q, k, v, do, o, qq, kk, vv, o_lib
+    if "K3" in kernels:
+        from controlvar_tpu_torch.models.masks import attn_mask_for_config
+
+        cfg16 = control_var_config_from_depth(16, multi_cond=True)
+        mask = torch.from_numpy(attn_mask_for_config(cfg16)).cuda()
+        qkv = randn(8, cfg16.seq_len, 3, 16, 64)
+        qkv[:, :, 0] *= 4.0
+        q, k, v = qkv.to(bf).permute(2, 0, 3, 1, 4)
+        flags, sc = A.tile_flags(mask), cfg16.attn_scale
+        out["K3 d16 train (ms, sdpa ms)"] = (
+            events_ms(lambda: A.flash_attention(q, k, v, mask, sc, flags)),
+            events_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=sc)))
+        del qkv, q, k, v
+    if "K2" in kernels:
+        from controlvar_tpu_torch.ops.sample_kernel import sample_top_k_top_p_bisect
+
+        cfg16 = control_var_config_from_depth(16, multi_cond=True)
+        rows = [16 * 3 * pn * pn for pn in cfg16.patch_nums]
+        logits = 3.0 * randn(rows[-1], cfg16.vocab_size)
+        logits[:, :8] += 10.0
+        out["K2 (rows, ms)"] = [
+            (n, graph_ms(lambda: sample_top_k_top_p_bisect(
+                logits[:n], 900, 0.96, generator=torch.Generator().manual_seed(7))))
+            for n in rows]
+        out["K2 per call ms (10 launches)"] = sum(t for _, t in out["K2 (rows, ms)"])
+        del logits
     if "K6" in kernels:
         cfg = control_var_config_from_depth(24, multi_cond=True)
         ck, cv = (randn(2, 16, 24, cfg.seq_len, 64).to(bf) for _ in range(2))

@@ -205,3 +205,91 @@ def test_kernel_flags_are_checked_or_computed():
     for bad in (flags[:1], flags.int(), flags.t()):
         with pytest.raises(ValueError, match="flags must be"):
             _kernel_flags(mask, bad)
+
+
+def _skip_mask(kind):
+    """The masks the tile-skipping forward is held on: L = 42 (one tile),
+    the d16 training mask and the `indep` one (L = 1360), a random pattern
+    of 64 x 64 tiles (L = 300, not a multiple of 64) and a causal mask with
+    rows that attend nowhere (L = 320: the JAX kernel pads L to its blocks,
+    and a row that attends nowhere spreads its P = 1 over the padded keys
+    too)."""
+    from controlvar_tpu_torch.models.masks import block_causal_mask, separate_decoding_mask
+
+    pn = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
+    if kind == "d16":
+        return block_causal_mask(pn, 2)
+    if kind == "indep":
+        return separate_decoding_mask(pn, indep=True)
+    if kind == "tile_pattern":
+        return _tile_pattern(300, 64, 1)
+    if kind == "rows_without_true":
+        mask = np.tril(np.ones((320, 320), bool))
+        mask[[70, 200, 201]] = False
+        return mask
+    return _mask(kind)
+
+
+def online_softmax_skipping(q, k, v, mask, scale, tile=64):
+    """Kernel K3's algorithm in fp32 torch: per 64-row q tile, an online
+    softmax over the 64-key tiles of its row of `tile_flags`, skipping
+    those flagged 2 (fully masked) and reading the mask only in those
+    flagged 0; keys past L are sliced off. Returns (out, lse)."""
+    B, H, L, hd = q.shape
+    flags = tile_flags(mask)
+    qs = q * torch.tensor(scale, dtype=q.dtype)
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, L, dtype=q.dtype)
+    for i in range(flags.shape[0]):
+        rows = slice(64 * i, min(L, 64 * i + 64))
+        m = torch.full((B, H, rows.stop - rows.start, 1), NEG_INF)
+        l = torch.zeros_like(m)
+        o = torch.zeros(B, H, rows.stop - rows.start, hd)
+        for j in range(flags.shape[1]):
+            f = int(flags[i, j])
+            if f == 2:
+                continue
+            cols = slice(64 * j, min(L, 64 * j + 64))
+            s = qs[:, :, rows] @ k[:, :, cols].transpose(-1, -2)
+            if f == 0:
+                s = torch.where(mask[rows, cols], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            o = alpha * o + p @ v[:, :, cols]
+            m = m_new
+        l = l.clamp_min(1e-30)
+        out[:, :, rows] = o / l
+        lse[:, :, rows] = (m + torch.log(l)).squeeze(-1)
+    return out, lse
+
+
+@pytest.mark.parametrize("kind", ["block_causal", "d16", "tile_pattern", "indep",
+                                  "rows_without_true"])
+def test_forward_skipping_fully_masked_tiles_is_exact(kind):
+    """Skipping the tiles flagged 2 changes nothing: fp32, the tile-skipping
+    online softmax equals the plain forward and the JAX package's Pallas
+    forward (interpret mode, 64 x 64 blocks): out within 1e-6 of the
+    largest |out| (reassociation of fp32 sums over <= 22 tiles), lse
+    within 1e-6. Rows that attend nowhere keep P = 1 on every key (their
+    tiles are never flagged 2), and lse = -1e30 on all three."""
+    mask = _skip_mask(kind)
+    L = mask.shape[0]
+    flags = tile_flags(torch.from_numpy(mask))
+    if kind in ("d16", "tile_pattern", "indep"):
+        assert (flags == 2).any()
+    q, k, v = (torch.from_numpy(t) for t in _inputs(5, L)[:3])
+    tm = torch.from_numpy(mask)
+    got, got_lse = online_softmax_skipping(q, k, v, tm, SCALE)
+    want, want_lse = flash_attention_plain(q, k, v, tm, SCALE)
+    tol = 1e-6 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    torch.testing.assert_close(got_lse, want_lse, rtol=0, atol=1e-6)
+    j_out, j_lse = j_flash_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                                     jnp.asarray(mask), SCALE, block_q=64, block_k=64,
+                                     interpret=True, return_lse=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_out), rtol=0, atol=tol)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(j_lse), rtol=0, atol=1e-6)
+    if kind == "rows_without_true":
+        assert float(got_lse[0, 0, 70]) == float(np.float32(NEG_INF))

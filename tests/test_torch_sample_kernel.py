@@ -10,7 +10,8 @@ import torch
 from controlvar_tpu.ops.sample_kernel import kept_mask, sample_top_k_top_p_bisect as j_bisect
 
 from controlvar_tpu_torch.ops.sample_kernel import (
-    gumbel_noise, kept_mask_plain, sample_bisect_plain, sample_top_k_top_p_bisect)
+    N_ITER, TAIL_NATS, gumbel_noise, kept_mask_plain, sample_bisect_plain,
+    sample_top_k_top_p_bisect)
 from controlvar_tpu_torch.ops.sampling import sample_top_k_top_p
 
 
@@ -92,3 +93,79 @@ def test_gumbel_noise_is_seeded():
     b = gumbel_noise((3, 5), torch.Generator().manual_seed(0))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert torch.isfinite(a).all()
+
+
+def kept_by_selection(l: torch.Tensor, top_k: int, top_p: float):
+    """Kernel K2's route to the bisection's kept set, in fp32 torch: v_k (the
+    k-th largest logit) by torch.topk, then the 26 midpoints replayed
+    against it (count(l >= mid) >= k holds exactly when v_k >= mid); y* (the
+    largest kept logit whose mass at or above it reaches top_p * Z) by a
+    sort and a cumulative sum, then the midpoints replayed against it (the
+    kept mass above mid reaches top_p * Z exactly when mid < y*). Returns
+    (kept, margin): margin is, per row, the distance of the cumulative mass
+    from top_p * Z on either side of the crossing, over Z (in fp64)."""
+    V = l.shape[-1]
+    m = l.max(dim=-1, keepdim=True).values
+    lo0 = m - TAIL_NATS
+
+    def replay(test):
+        lo, hi = lo0, m + 1.0
+        for _ in range(N_ITER):
+            mid = 0.5 * (lo + hi)
+            t = test(mid)
+            lo, hi = torch.where(t, mid, lo), torch.where(t, hi, mid)
+        return lo
+
+    thr_k = lo0
+    if 0 < top_k < V:
+        vk = torch.topk(l, top_k, dim=-1).values[:, -1:]
+        thr_k = replay(lambda mid: vk >= mid)
+    kept = l >= thr_k
+    margin = torch.full((l.shape[0],), float("inf"), dtype=torch.float64)
+    if top_p > 0.0:
+        e = torch.where(kept, torch.exp(l - m), 0.0)
+        order = torch.argsort(l, dim=-1, descending=True, stable=True)
+        cum = torch.cumsum(e.gather(1, order), dim=-1)
+        pz = top_p * cum[:, -1:]
+        first = torch.searchsorted(cum, pz).clamp_max(V - 1)  # first cum >= pz
+        ys = l.gather(1, order.gather(1, first))
+        kept = kept & (l > replay(lambda mid: mid < ys))
+        c64, p64 = cum.double(), pz.double()
+        above = c64.gather(1, first) - p64
+        below = p64 - torch.where(first > 0, c64.gather(1, (first - 1).clamp_min(0)), 0.0)
+        # at top_p >= 1 the crossing is the end of the sum on both sides
+        near = below if top_p >= 1.0 else torch.minimum(above, below)
+        margin = (near / c64[:, -1:]).squeeze(1)
+    return kept, margin
+
+
+def _selection_rows(kind, V, seed):
+    rng = np.random.default_rng(seed)
+    l = rng.normal(0, 3.0, (64, V)).astype(np.float32)
+    l[:, :8] += 10.0  # a peaked head, as CFG logits have
+    if kind == "ties":  # values on a coarse grid
+        l = np.round(4.0 * l) / 4.0
+    if kind == "tail":  # a third of each row more than 80 nats below the max
+        l[:, ::3] -= 200.0
+    return l
+
+
+@pytest.mark.parametrize("kind,V,top_k,top_p", [
+    ("random", 4096, 900, 0.96), ("random", 1000, 900, 0.96), ("ties", 4096, 900, 0.96),
+    ("random", 4096, 1, 0.96), ("random", 4096, 4095, 0.96), ("ties", 1000, 999, 0.5),
+    ("tail", 4096, 3000, 0.96), ("random", 4096, 50, 1.0), ("random", 1000, 0, 0.9)])
+def test_selection_route_equals_jax_kept_mask(kind, V, top_k, top_p):
+    """The top-k kept set of the selection route is bit-equal to the JAX
+    package's kept_mask at top_p = 0 (the threshold is the bisection's bit
+    for bit); with top-p the combined set equals it on every row whose
+    crossing is more than 1e-5 of the mass from top_p * Z (fp32 sums in
+    another order may move a nearer one), and those rows are at least 90%."""
+    l = _selection_rows(kind, V, 7)
+    tl = torch.from_numpy(l)
+    want_k = np.asarray(kept_mask(jnp.asarray(l), top_k, 0.0, n_iter=26))
+    np.testing.assert_array_equal(kept_by_selection(tl, top_k, 0.0)[0].numpy(), want_k)
+    want = np.asarray(kept_mask(jnp.asarray(l), top_k, top_p, n_iter=26))
+    got, margin = kept_by_selection(tl, top_k, top_p)
+    clear = (margin > 1e-5).numpy()
+    assert clear.mean() >= 0.9, clear.mean()
+    np.testing.assert_array_equal(got.numpy()[clear], want[clear])
