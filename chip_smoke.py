@@ -21,14 +21,15 @@ Run from the root of a checkout. Phases, each fatal on failure:
      unfiltered categorical, whose noise is made on the card) against the
      analytic softmax, and its device time at every scale's row count;
   5. K3 flash attention forward and K4 backward vs their plain versions at
-     the d16 training shape (8, 16, 1360, 64) under the block-causal mask
-     and under a random pattern of 64 x 64 tiles (fully masked tiles
-     anywhere, the diagonal kept), with q, k, v and dO strided as the
-     training path gives them, and at a small ragged shape under a causal
+     the d16 training shape (8, 16, 1360, 64) under the block-causal mask,
+     at the VAR-d16 one (8, 16, 680, 64: a 40-row last tile) under its
+     block-causal mask, and under a random pattern of 64 x 64 tiles (fully
+     masked tiles anywhere, the diagonal kept), with q, k, v and dO strided
+     as the training path gives them, and at a small ragged shape under a causal
      mask; K3 also with rows that attend nowhere and at a scale that is not
      a power of two (0.9/32); K3 and K4 each run twice on the same inputs
      give the same bits; with their times, the plain versions' and SDPA's
-     (forward, and its autograd backward);
+     (forward, and its autograd backward) at both training shapes;
   6. K5 prefix decode vs its plain version at every scale's (pos, l) of
      the d24 joint path's segmented cache (16 CFG rows, 24 heads), over the
      full prefix and over the kv_window=2 one, on the views
@@ -61,14 +62,31 @@ Run from the root of a checkout. Phases, each fatal on failure:
   9. the training path at full width: ControlVAR-d16 (multi_cond), the
      ch-160 VQVAE frozen inside the step, B=8 seeded 256x256 image/mask
      batches, AdamW (OptimConfig(total_batch_size=8)), one warm-up step and
-     five timed steps, with K3/K4 launch counts read around each step;
- 10. the serving path at full width: ControlVAR-d16 (multi_cond) and the
+     five timed steps, with K3/K4 launch counts read around each step; then
+     one warm-up and three timed steps under each of the remat policies
+     dots and dots_attn (K3 32, 32 and 16 a step), with peak memory;
+ 10. checkpoints: VAR-d16 and the ch-160 VQVAE from seeds, exported,
+     written with save_torch_checkpoint, read back and imported onto the
+     card, every leaf bit for bit;
+ 11. the fine-tuning path: VAR-d16 -> ControlVAR-d16 multi_cond surgery
+     (concat: pos_1LC == [pos; pos], the blocks equal), LoRA rank 16 /
+     alpha 32 on the training path's batches, one warm-up and three timed
+     steps (the base unchanged and without gradients, every B non-zero),
+     the LoRA state saved with CheckpointIO and restored into a fresh state
+     (params, Adam moments on the card, step equal), and merge_lora ->
+     export -> import bit for bit;
+ 12. the VAR training path: VAR-d16 (configs/train_var_imagenet_d16.yaml:
+     drop path 0.1, cond drop 0.1, lr 1e-5, wd 1e-4, cosine), B=8 seeded
+     256x256 images tokenized inside the step, one warm-up and five timed
+     steps, K3/K4 counted; then a tiny bf16 VAR step on the card against
+     the fp32 CPU step (loss, gradient cosines);
+ 13. the serving path at full width: ControlVAR-d16 (multi_cond) and the
      ch-160 VQVAE, random weights from a seed,
      SamplingHarness.control_conditioned on 16 seeded 256x256 control images
      (tokenize, 10 scales with 4-way CFG, top-k 900, top-p 0.96, decode both
      canvases), one warm-up call and one timed call, with K1/K2 launch
      counts read around each call;
- 11. the joint path at full width: ControlVAR-d24 (multi_cond) and the
+ 14. the joint path at full width: ControlVAR-d24 (multi_cond) and the
      ch-160 VQVAE, random weights from a seed, SamplingHarness.joint on B=8
      (labels arange(8), cond types i % 4; 10 scales with 2-way CFG 4.0,
      top-k 900, top-p 0.96, decode both canvases) in three cache modes:
@@ -77,7 +95,7 @@ Run from the root of a checkout. Phases, each fatal on failure:
      rounds that call every mode once in a rotated order (the median of
      each mode's four calls), with the launch counts of K1, K2, K5 and K6
      read around every call;
- 12. the VAR path at full width (BASELINE config 2): VAR-d12 and the ch-160
+ 15. the VAR path at full width (BASELINE config 2): VAR-d12 and the ch-160
      VQVAE, random weights from a seed, StepwiseVARSampler on B=64 (labels
      arange(64); 10 scales with 2-way CFG 1.5, top-k 900, top-p 0.96, images
      decoded) with the stacked cache (K1 120 launches a call) and with
@@ -454,10 +472,11 @@ def _bwd_mags(torch, q, k, v, mask, out, lse, do, scale):
             p.transpose(-1, -2) @ do.float().abs())
 
 
-def flash_phase(torch, cfg):
-    """K3 and K4 vs their plain versions at the d16 training shape and at a
-    small ragged one; times at the training shape. Returns the two
-    kernels-line entries."""
+def flash_phase(torch, cfg, var_cfg):
+    """K3 and K4 vs their plain versions at the d16 training shape, at the
+    VAR-d16 one (L = 680: a 40-row last tile, the plain block-causal mask)
+    and at a small ragged one; times at both training shapes. Returns the
+    two kernels-line entries (at the ControlVAR-d16 shape)."""
     import torch.nn.functional as F
 
     from controlvar_tpu_torch.models.masks import attn_mask_for_config
@@ -499,8 +518,11 @@ def flash_phase(torch, cfg):
         return mask
 
     train_mask = torch.from_numpy(attn_mask_for_config(cfg)).to(dev)
+    var_mask = torch.from_numpy(attn_mask_for_config(var_cfg)).to(dev)
     cases = [("d16 train (8, 16, 1360, 64), block-causal, strided", 8, cfg.num_heads,
               train_mask, True),
+             ("VAR-d16 train (8, 16, 680, 64), block-causal, strided", 8, var_cfg.num_heads,
+              var_mask, True),
              ("ragged (2, 3, 100, 64), causal", 2, 3,
               torch.ones(100, 100, dtype=torch.bool, device=dev).tril(), False),
              ("random 64x64 tile pattern (8, 16, 1360, 64), strided", 8, cfg.num_heads,
@@ -555,32 +577,40 @@ def flash_phase(torch, cfg):
         out, lse = flash_attention(q, k, v, mask, sc)
         errs3.append(check_k3(name, q, k, v, mask, sc, out, lse))
 
-    # times at the training path's shapes, strides and precomputed flags
-    q, k, v, do = inputs(B, H, L, True)
-    flags = tile_flags(train_mask)
-    out, lse = flash_attention(q, k, v, train_mask, scale, flags)
-    ms3 = cuda_ms(lambda: flash_attention(q, k, v, train_mask, scale, flags), 20)
-    plain3 = cuda_ms(lambda: flash_attention_plain(q, k, v, train_mask, scale), 3)
-    lib3 = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=train_mask,
-                                                          scale=scale), 20)
-    ms4 = cuda_ms(lambda: flash_attention_bwd(q, k, v, train_mask, out, lse, do, scale,
-                                              flags), 20)
-    plain4 = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, train_mask, out, lse, do,
-                                                       scale), 3)
-    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=train_mask, scale=scale)
-    lib4 = cuda_ms(lambda: torch.autograd.grad(o_lib, (qq, kk, vv), do, retain_graph=True), 20)
-    n = B * H * L * hd
-    # the work the function needs: the mask's unmasked scores only (61.9% of
-    # L x L), 2 matmul FLOP per score and hd for each product, 2 products in
-    # the forward (QK^T, PV) and 5 in the backward (S, dP, dV, dQ, dK)
-    per_score = B * H * hd * int(train_mask.sum())
-    b3 = bound_ms(2 * 4 * n + 4 * B * H * L + L * L, 4 * per_score, PEAK_BF16_FLOPS)
-    b4 = bound_ms(2 * 8 * n + 4 * B * H * L + L * L, 10 * per_score, PEAK_BF16_FLOPS)
-    print(f"K3 d16 train shape: kernel {ms3:.4f} ms, plain {plain3:.4f} ms, "
-          f"sdpa {lib3:.4f} ms, bound {b3[0]:.4f} ms ({b3[1]})")
-    print(f"K4 d16 train shape: kernel {ms4:.4f} ms, plain {plain4:.4f} ms, "
-          f"sdpa backward {lib4:.4f} ms, bound {b4[0]:.4f} ms ({b4[1]})")
+    def times(label, B, H, mask):
+        """K3's and K4's times at a training path's shape, strides and
+        precomputed flags, beside their plain versions', SDPA's and their
+        bounds."""
+        L = mask.shape[0]
+        q, k, v, do = inputs(B, H, L, True)
+        flags = tile_flags(mask)
+        out, lse = flash_attention(q, k, v, mask, scale, flags)
+        ms3 = cuda_ms(lambda: flash_attention(q, k, v, mask, scale, flags), 20)
+        plain3 = cuda_ms(lambda: flash_attention_plain(q, k, v, mask, scale), 3)
+        lib3 = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                              scale=scale), 20)
+        ms4 = cuda_ms(lambda: flash_attention_bwd(q, k, v, mask, out, lse, do, scale, flags), 20)
+        plain4 = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, mask, out, lse, do, scale), 3)
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, scale=scale)
+        lib4 = cuda_ms(lambda: torch.autograd.grad(o_lib, (qq, kk, vv), do, retain_graph=True),
+                       20)
+        n = B * H * L * hd
+        # the work the function needs: the mask's unmasked scores only (61.9%
+        # of L x L at both shapes), 2 matmul FLOP per score and hd for each
+        # product, 2 products in the forward (QK^T, PV) and 5 in the backward
+        # (S, dP, dV, dQ, dK)
+        per_score = B * H * hd * int(mask.sum())
+        b3 = bound_ms(2 * 4 * n + 4 * B * H * L + L * L, 4 * per_score, PEAK_BF16_FLOPS)
+        b4 = bound_ms(2 * 8 * n + 4 * B * H * L + L * L, 10 * per_score, PEAK_BF16_FLOPS)
+        print(f"K3 {label}: kernel {ms3:.4f} ms, plain {plain3:.4f} ms, "
+              f"sdpa {lib3:.4f} ms, bound {b3[0]:.4f} ms ({b3[1]})")
+        print(f"K4 {label}: kernel {ms4:.4f} ms, plain {plain4:.4f} ms, "
+              f"sdpa backward {lib4:.4f} ms, bound {b4[0]:.4f} ms ({b4[1]})")
+        return (ms3, plain3, lib3, b3), (ms4, plain4, lib4, b4)
+
+    (ms3, plain3, lib3, b3), (ms4, plain4, lib4, b4) = times("d16 train shape", B, H, train_mask)
+    times("VAR-d16 train shape (8, 16, 680, 64)", 8, var_cfg.num_heads, var_mask)
     return (dict(name="flash_attention", route="cuda",
                  source="controlvar_tpu_torch/csrc/flash_attention.cu",
                  replaces="controlvar_tpu/ops/attention.py:99", max_abs_err=max(errs3),
@@ -1005,11 +1035,20 @@ def reference_phase(torch):
             fail(f"reference: {name} launched its kernel {kernel.launches} times, not {expect}")
     print("reference: tokenizer ids equal")
 
+    _check_train_step(torch, "train step", _tiny_train)
+
+
+def _check_train_step(torch, label, run):
+    """`run(torch, device, dtype)`, a tiny-config train step, bf16 on the
+    card against fp32 on the CPU: the loss within TRAIN_LOSS_RTOL, the
+    cosine of the whole gradient and of each block leaf's within theirs,
+    and the card's K3/K4 launches (2 layers: forward and recompute, and one
+    backward each)."""
     from controlvar_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
 
     flash_attention.launches = flash_attention_bwd.launches = 0
-    loss_c, norm_c, grad_c = _tiny_train(torch, "cpu", torch.float32)
-    loss_g, norm_g, grad_g = _tiny_train(torch, "cuda", torch.bfloat16)
+    loss_c, norm_c, grad_c = run(torch, "cpu", torch.float32)
+    loss_g, norm_g, grad_g = run(torch, "cuda", torch.bfloat16)
     counts = (flash_attention.launches, flash_attention_bwd.launches)
     rel = abs(loss_g - loss_c) / abs(loss_c)
     cosine = lambda a, b: float(a @ b / (a.norm() * b.norm()))
@@ -1017,30 +1056,103 @@ def reference_phase(torch):
     leaf_cos = {name: cosine(grad_g[name], grad_c[name])
                 for name in grad_c if name.startswith("blocks/")}
     worst = min(leaf_cos, key=leaf_cos.get)
-    print(f"reference: bf16 GPU train step vs fp32 CPU: loss {loss_g:.6f} vs {loss_c:.6f} "
+    print(f"reference: bf16 GPU {label} vs fp32 CPU: loss {loss_g:.6f} vs {loss_c:.6f} "
           f"(relative {rel:.3e}), grad_norm {norm_g:.6f} vs {norm_c:.6f}, gradient "
           f"cosine {cos:.6f}, launches K3={counts[0]} K4={counts[1]}")
-    print("reference: gradient cosine of each block leaf: " + ", ".join(
+    print(f"reference: {label}, gradient cosine of each block leaf: " + ", ".join(
         f"{name} {c:.6f}" for name, c in sorted(leaf_cos.items())))
-    if counts != (4, 2):  # 2 layers: forward, recompute; one backward each
-        fail(f"reference: train step launches (K3, K4) = {counts}, expected (4, 2)")
+    if counts != (4, 2):
+        fail(f"reference: {label} launches (K3, K4) = {counts}, expected (4, 2)")
     if not rel <= TRAIN_LOSS_RTOL:
-        fail(f"reference: train loss relative difference {rel:.3e} > {TRAIN_LOSS_RTOL:g}")
+        fail(f"reference: {label} loss relative difference {rel:.3e} > {TRAIN_LOSS_RTOL:g}")
     if not cos >= TRAIN_GRAD_COS:
-        fail(f"reference: gradient cosine {cos:.6f} < {TRAIN_GRAD_COS}")
+        fail(f"reference: {label} gradient cosine {cos:.6f} < {TRAIN_GRAD_COS}")
     if not leaf_cos[worst] >= TRAIN_BLOCK_LEAF_COS:
-        fail(f"reference: gradient cosine of {worst} {leaf_cos[worst]:.6f} < "
+        fail(f"reference: {label} gradient cosine of {worst} {leaf_cos[worst]:.6f} < "
              f"{TRAIN_BLOCK_LEAF_COS}")
 
 
+def _pixel_batch(torch, B, num_classes, seed, control=True):
+    """B seeded 256x256 images in [-1, 1] with their classes, on the card;
+    with control, the control images and cond types too."""
+    g = torch.Generator().manual_seed(seed)
+    img = lambda: (torch.rand(B, 256, 256, 3, generator=g) * 2 - 1).cuda()
+    batch = {"image": img()}
+    if control:
+        batch["mask"] = img()
+    batch["cls"] = torch.randint(0, num_classes, (B,), generator=g).cuda()
+    if control:
+        batch["type"] = torch.randint(0, 4, (B,), generator=g).cuda()
+    return batch
+
+
+def _timed_steps(torch, label, step_fn, expect, n_timed, B, profile_tag=None):
+    """One warm-up step, then n_timed timed ones, each ended by a
+    synchronize, with the K3/K4 launches of each held to `expect` and the
+    loss and grad_norm finite; with profile_tag, one more step under the
+    profiler (device busy time, idle share, time by category). Returns
+    (s/step, peak GiB of the timed steps, the warm-up loss)."""
+    import math
+
+    from controlvar_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+
+    def one():
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        aux = step_fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = (flash_attention.launches, flash_attention_bwd.launches)
+        if counts != expect:
+            fail(f"{label}: launches (K3, K4) = {counts}, expected {expect}")
+        loss, norm = float(aux["loss"]), float(aux["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            fail(f"{label}: loss {loss} grad_norm {norm}")
+        return dt, loss, aux
+
+    dt, loss0, aux = one()
+    print(f"{label}: warm-up step {dt:.3f} s, loss {loss0:.5f}, grad_norm "
+          f"{float(aux['grad_norm']):.5f}, lr {aux['lr']:.3e}")
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(n_timed):
+        dt, loss, aux = one()
+        times.append(dt)
+        losses.append(loss)
+    s_step = sum(times) / n_timed
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{label}: {n_timed} timed steps {', '.join(f'{t:.4f}' for t in times)} s; "
+          f"mean {s_step:.4f} s/step = {B / s_step:.3f} img/s; peak memory {peak:.2f} GiB; "
+          f"losses {', '.join(f'{x:.5f}' for x in losses)}; launches per step "
+          f"K3={expect[0]} K4={expect[1]}")
+    if profile_tag:
+        busy, wall, by_cat = device_profile(torch, lambda: one()[0], profile_tag)
+        # the profiler slows the host, so the profiled step's idle share
+        # overstates an unprofiled step's; both are printed
+        print(f"{profile_tag} breakdown: profiled step {wall:.2f} ms, device busy {busy:.2f} "
+              f"ms, idle share {1 - busy / wall:.4f} of the profiled step, "
+              f"{1 - busy / (s_step * 1e3):.4f} of the mean timed step")
+        for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+            print(f"{profile_tag} breakdown: {cat}: {ms:.2f} ms")
+    return s_step, peak, loss0
+
+
+def _launches_per_step(depth, remat):
+    """(K3, K4) a train step: the forward of each layer, and its recompute
+    except under dots_attn; one backward each."""
+    return (depth if remat == "dots_attn" else 2 * depth, depth)
+
+
 def train_path_phase(torch, cfg, profile: bool):
-    """The training path at full width: returns (K3, K4) launches of a step."""
+    """The training path at full width, under the default remat policy and
+    then under dots and dots_attn. Returns ((K3, K4) launches of a default
+    step, its s/step, {policy: (s/step, peak GiB, K3 a step)})."""
     import math
 
     from controlvar_tpu_torch.config import OptimConfig, VQVAEConfig
     from controlvar_tpu_torch.models.control_var import ControlVARModel
     from controlvar_tpu_torch.models.vqvae import VQVAE
-    from controlvar_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
     from controlvar_tpu_torch.train.train_step import ControlVARTrainStep, init_train_state
 
     B, n_timed = 8, 5
@@ -1050,63 +1162,233 @@ def train_path_phase(torch, cfg, profile: bool):
     stepper = ControlVARTrainStep(model, vqvae, optim, max_steps=1000, warmup_steps=10)
     state = init_train_state(model.init_params(0), optim)
     vq_params = vqvae.init_params(1)
-    g = torch.Generator().manual_seed(5)
-    batch = {"image": (torch.rand(B, 256, 256, 3, generator=g) * 2 - 1).cuda(),
-             "mask": (torch.rand(B, 256, 256, 3, generator=g) * 2 - 1).cuda(),
-             "cls": torch.randint(0, cfg.num_classes, (B,), generator=g).cuda(),
-             "type": torch.randint(0, 4, (B,), generator=g).cuda()}
+    batch = _pixel_batch(torch, B, cfg.num_classes, 5)
     n_params = sum(t.numel() for t in state.optimizer.param_groups[0]["params"]) + sum(
         t.numel() for t in state.optimizer.param_groups[1]["params"])
     head0 = state.params["head"]["kernel"].detach().clone()
     gen = torch.Generator().manual_seed(6)
-    expect = (2 * cfg.depth, cfg.depth)  # forward + recompute; one backward per layer
     print(f"train path: d16 params ({n_params / 1e6:.1f} M) and ch-160 VQVAE built in "
           f"{time.time() - t0:.1f} s")
-
-    def one_step():
-        flash_attention.launches = flash_attention_bwd.launches = 0
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        _, aux = stepper.step(state, vq_params, batch, gen)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        counts = (flash_attention.launches, flash_attention_bwd.launches)
-        if counts != expect:
-            fail(f"train path: launches (K3, K4) = {counts}, expected {expect}")
-        loss, norm = float(aux["loss"]), float(aux["grad_norm"])
-        if not (math.isfinite(loss) and math.isfinite(norm)):
-            fail(f"train path: loss {loss} grad_norm {norm}")
-        return dt, loss, norm, aux, counts
-
-    dt, loss, norm, aux, counts = one_step()
-    print(f"train path: warm-up step {dt:.3f} s, loss {loss:.5f} (ln V = "
-          f"{math.log(cfg.vocab_size):.5f}), grad_norm {norm:.5f}, lr {aux['lr']:.3e}")
-    if abs(loss - math.log(cfg.vocab_size)) > 0.5:
-        fail(f"train path: step-0 loss {loss:.4f} is not near ln V")
-    torch.cuda.reset_peak_memory_stats()
-    times, losses = [], []
-    for _ in range(n_timed):
-        dt, loss, norm, aux, counts = one_step()
-        times.append(dt)
-        losses.append(loss)
+    step_fn = lambda: stepper.step(state, vq_params, batch, gen)[1]
+    expect = _launches_per_step(cfg.depth, "full")
+    s_step, peak, loss0 = _timed_steps(torch, "train path", step_fn, expect, n_timed, B,
+                                             "train" if profile else None)
+    print(f"train path: step-0 loss {loss0:.5f}, ln V = {math.log(cfg.vocab_size):.5f}")
+    if abs(loss0 - math.log(cfg.vocab_size)) > 0.5:
+        fail(f"train path: step-0 loss {loss0:.4f} is not near ln V")
     if float((state.params["head"]["kernel"].detach() - head0).abs().max()) == 0.0:
         fail("train path: the params did not change")
-    s_step = sum(times) / n_timed
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"train path: {n_timed} timed steps {', '.join(f'{t:.4f}' for t in times)} s; "
-          f"mean {s_step:.4f} s/step = {B / s_step:.3f} img/s; peak memory {peak:.2f} GiB; "
-          f"losses {', '.join(f'{x:.5f}' for x in losses)}; launches per step "
-          f"K3={counts[0]} K4={counts[1]}")
-    if profile:
-        busy, wall, by_cat = device_profile(torch, lambda: one_step()[0], "train")
-        # the profiler slows the host, so the profiled step's idle share
-        # overstates an unprofiled step's; both are printed
-        print(f"train breakdown: profiled step {wall:.2f} ms, device busy {busy:.2f} ms, "
-              f"idle share {1 - busy / wall:.4f} of the profiled step, "
-              f"{1 - busy / (s_step * 1e3):.4f} of the mean timed step")
-        for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-            print(f"train breakdown: {cat}: {ms:.2f} ms")
-    return counts, s_step
+    policies = {"full": (s_step, peak, expect[0])}
+    for remat in ("dots", "dots_attn"):
+        stepper.remat = remat
+        k34 = _launches_per_step(cfg.depth, remat)
+        s_r, peak_r, _ = _timed_steps(torch, f"train path, remat {remat}", step_fn, k34,
+                                            3, B, f"train_{remat}" if profile else None)
+        policies[remat] = (s_r, peak_r, k34[0])
+    print("remat policies, d16 B=8 step: " + "; ".join(
+        f"{r} {v[0]:.4f} s/step, peak {v[1]:.2f} GiB, K3 {v[2]} a step"
+        for r, v in policies.items()))
+    return expect, s_step, policies
+
+
+def _assert_trees_equal(torch, label, got, want) -> int:
+    """Every leaf of `got` equal to `want`'s bit for bit, on the card, fp32;
+    returns the leaf count."""
+    from controlvar_tpu_torch.train.param_groups import named_leaves
+
+    got, want = dict(named_leaves(got)), dict(named_leaves(want))
+    if sorted(got) != sorted(want):
+        fail(f"{label}: leaves differ: {sorted(set(got) ^ set(want))}")
+    for name, w in want.items():
+        g = got[name]
+        if g.device.type != "cuda" or g.dtype != torch.float32 or g.shape != w.shape:
+            fail(f"{label}: {name} is {g.dtype} {tuple(g.shape)} on {g.device}")
+        if not torch.equal(g, w):
+            fail(f"{label}: {name} differs")
+    return len(want)
+
+
+def _scratch_dir():
+    """A directory for the files a phase writes, under the checkout's
+    build/ (listed in .gitignore), removed by the caller."""
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"))
+
+
+def ckpt_phase(torch, var_cfg):
+    """The .pth round trip at d16: VAR-d16 and the ch-160 VQVAE, initialized
+    by the port from seeds, exported, written with save_torch_checkpoint,
+    read back with load_torch_state_dict and converted onto the card; every
+    leaf bit for bit. Returns the VAR-d16 params."""
+    from controlvar_tpu_torch.ckpt import torch_export, torch_import
+    from controlvar_tpu_torch.config import VQVAEConfig
+    from controlvar_tpu_torch.models.var import VARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+
+    var_params = VARModel(var_cfg).init_params(0)
+    vq_cfg = VQVAEConfig()
+    models = (("VAR-d16", var_params, var_cfg, torch_export.export_var_state_dict,
+               torch_import.convert_var_state_dict),
+              ("VQVAE ch-160", VQVAE(vq_cfg).init_params(1), vq_cfg,
+               torch_export.export_vqvae_state_dict, torch_import.convert_vqvae_state_dict))
+    with _scratch_dir() as d:
+        for name, params, cfg, export, convert in models:
+            t = time.perf_counter()
+            path = os.path.join(d, "ckpt.pth")
+            sd = export(params, cfg)
+            torch_export.save_torch_checkpoint(path, sd, step=1)
+            size = os.path.getsize(path)
+            back = convert(torch_import.load_torch_state_dict(path), cfg)
+            n = _assert_trees_equal(torch, f"checkpoint {name}", back, params)
+            print(f"checkpoint: {name}: {len(sd)} state-dict entries, {size / 1e6:.1f} MB "
+                  f".pth, {n} leaves on the card equal bit for bit after export, save, load "
+                  f"and import ({time.perf_counter() - t:.1f} s)")
+            os.remove(path)
+            del back, sd
+    return var_params
+
+
+def finetune_phase(torch, cfg, var_params, profile: bool):
+    """The fine-tuning path at d16: VAR-d16 -> ControlVAR-d16 surgery
+    (concat), LoRA rank 16 / alpha 32 steps at B=8 on the train path's
+    batches, the LoRA state saved with CheckpointIO and restored into a
+    fresh one, and merge_lora -> export -> import. Returns ((K3, K4) a
+    step, s/step, peak GiB)."""
+    from controlvar_tpu_torch.ckpt import torch_export, torch_import
+    from controlvar_tpu_torch.ckpt.lora import LoRAConfig, merge_lora
+    from controlvar_tpu_torch.ckpt.orbax_io import CheckpointIO
+    from controlvar_tpu_torch.ckpt.surgery import var_to_control_var
+    from controlvar_tpu_torch.config import OptimConfig, VQVAEConfig
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.train.param_groups import named_leaves
+    from controlvar_tpu_torch.train.train_step import (ControlVARTrainStep,
+                                                       LoRAControlVARTrainStep)
+
+    B = 8
+    model, vqvae = ControlVARModel(cfg), VQVAE(VQVAEConfig())
+    base = var_to_control_var(var_params, model.init_params(2), cfg, mode="concat")
+    pos = var_params["pos_1LC"]
+    if not torch.equal(base["pos_1LC"], torch.cat([pos, pos], dim=1)):
+        fail("fine-tune: pos_1LC is not [pos; pos]")
+    n = _assert_trees_equal(torch, "fine-tune surgery blocks", base["blocks"],
+                            var_params["blocks"])
+    print(f"fine-tune: VAR-d16 -> ControlVAR-d16 multi_cond (concat): pos_1LC == [pos; pos] "
+          f"{tuple(base['pos_1LC'].shape)}, {n} block leaves equal")
+    # as a whole-model train state leaves them: the LoRA step must still give
+    # them no gradient
+    for _, leaf in named_leaves(base):
+        leaf.requires_grad_(True)
+    before = {name: leaf.detach().clone() for name, leaf in named_leaves(base)}
+    optim = OptimConfig(total_batch_size=B)
+    lcfg = LoRAConfig(rank=16, alpha=32.0)
+    lora_step = LoRAControlVARTrainStep(
+        ControlVARTrainStep(model, vqvae, optim, max_steps=1000, warmup_steps=10), lcfg)
+    state = lora_step.init_lora_state(torch.Generator().manual_seed(7), base, optim)
+    vq_params = vqvae.init_params(1)
+    batch = _pixel_batch(torch, B, cfg.num_classes, 5)
+    gen = torch.Generator().manual_seed(8)
+    expect = _launches_per_step(cfg.depth, "full")
+    s_step, peak, _ = _timed_steps(
+        torch, "fine-tune (LoRA r16)", lambda: lora_step.step(state, base, vq_params, batch,
+                                                              gen)[1], expect, 3, B,
+        "finetune" if profile else None)
+    n_lora = sum(t.numel() for _, t in named_leaves(state.params))
+    for name, leaf in named_leaves(base):
+        if leaf.grad is not None:
+            fail(f"fine-tune: base leaf {name} has a gradient")
+        if not torch.equal(leaf.detach(), before[name]):
+            fail(f"fine-tune: base leaf {name} changed")
+    for key, ab in state.params.items():
+        if float(ab["B"].detach().abs().max()) == 0.0:
+            fail(f"fine-tune: LoRA B of {key} is still zero after 4 steps")
+    print(f"fine-tune: {n_lora / 1e6:.2f} M LoRA params in {len(state.params)} targets; base "
+          f"leaves unchanged bit for bit, none with a gradient; every B non-zero")
+    del before
+
+    with _scratch_dir() as d:
+        io = CheckpointIO(d)
+        io.save(state.step, state, metadata={"epoch": 0})
+        fresh = lora_step.init_lora_state(torch.Generator().manual_seed(9), base, optim)
+        restored, meta = io.restore(fresh)
+    if restored.step != state.step or meta != {"epoch": 0}:
+        fail(f"fine-tune: restored step {restored.step}, metadata {meta}")
+    _assert_trees_equal(torch, "fine-tune restore: params", restored.params, state.params)
+    want_opt, got_opt = state.optimizer.state_dict(), restored.optimizer.state_dict()
+    for i, moments in want_opt["state"].items():
+        for name in ("exp_avg", "exp_avg_sq"):
+            got = got_opt["state"][i][name]
+            if got.device.type != "cuda" or not torch.equal(got, moments[name]):
+                fail(f"fine-tune restore: Adam {name} of param {i} differs or is on {got.device}")
+        if float(got_opt["state"][i]["step"]) != float(moments["step"]):
+            fail(f"fine-tune restore: Adam step of param {i} differs")
+    print(f"fine-tune: CheckpointIO save at step {state.step} and restore into a fresh state: "
+          f"params, Adam moments (on the card) and step equal")
+
+    merged = merge_lora(base, state.params, lcfg)
+    back = torch_import.convert_control_var_state_dict(
+        torch_export.export_control_var_state_dict(merged, cfg), cfg)
+    n = _assert_trees_equal(torch, "fine-tune merge", back, merged)
+    print(f"fine-tune: merge_lora -> export -> import: {n} leaves equal bit for bit")
+    return expect, s_step, peak
+
+
+def _tiny_var_train(torch, device, dtype):
+    """One pixel step of VARTrainStep at a tiny config (hd = 64, L = 21)
+    from fixed weights and images, the fp32 tokenizer on both devices (its
+    ids are equal there); returns (loss, grad_norm, flattened gradients)."""
+    from controlvar_tpu_torch.config import OptimConfig, VARConfig, VQVAEConfig
+    from controlvar_tpu_torch.models.var import VARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.train.param_groups import named_leaves
+    from controlvar_tpu_torch.train.train_step import VARTrainStep, init_train_state
+
+    cfg = VARConfig(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4), vocab_size=128,
+                    cvae=32, num_classes=8, cond_drop_rate=0.0)
+    vq_cfg = VQVAEConfig(ch=32, patch_nums=(1, 2, 4), vocab_size=128)
+    model, vqvae = VARModel(cfg, device=device), VQVAE(vq_cfg, device=device)
+    step = VARTrainStep(model, vqvae, OptimConfig(), max_steps=100, warmup_steps=2,
+                        device=device)
+    step.tokenize_dtype, step.compute_dtype = torch.float32, dtype
+    state = init_train_state(model.init_params(1), OptimConfig())
+    g = torch.Generator().manual_seed(3)
+    batch = {"image": torch.rand(4, 64, 64, 3, generator=g) * 2 - 1,
+             "cls": torch.randint(0, 8, (4,), generator=g)}
+    state, aux = step.step(state, vqvae.init_params(0), batch)
+    grads = {name: leaf.grad.flatten().double().cpu()
+             for name, leaf in named_leaves(state.params)}
+    return float(aux["loss"]), float(aux["grad_norm"]), grads
+
+
+def var_train_phase(torch, var_cfg, var_params, profile: bool):
+    """The VAR-d16 train step at B=8 with configs/train_var_imagenet_d16.yaml's
+    recipe, seeded 256x256 images tokenized inside the step; then a tiny
+    bf16 VAR step on the card against the fp32 CPU step. Returns ((K3, K4)
+    a step, s/step, peak GiB)."""
+    from controlvar_tpu_torch.config import OptimConfig, VQVAEConfig
+    from controlvar_tpu_torch.models.var import VARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.train.train_step import VARTrainStep, init_train_state
+
+    B = 8
+    # the recipe: drop path 0.1, cond drop 0.1, lr 1e-5 (base, scaled by
+    # B / 512 as the CLI scales it), wd 1e-4, cosine, 100 epochs
+    optim = OptimConfig(base_lr=1e-5, weight_decay=1e-4, schedule="cos", epochs=100,
+                        total_batch_size=B)
+    model, vqvae = VARModel(var_cfg), VQVAE(VQVAEConfig())
+    stepper = VARTrainStep(model, vqvae, optim, max_steps=1000, warmup_steps=10)
+    state = init_train_state(var_params, optim)
+    vq_params = vqvae.init_params(1)
+    batch = _pixel_batch(torch, B, var_cfg.num_classes, 11, control=False)
+    gen = torch.Generator().manual_seed(12)
+    expect = _launches_per_step(var_cfg.depth, "full")
+    s_step, peak, _ = _timed_steps(
+        torch, "VAR-d16 train", lambda: stepper.step(state, vq_params, batch, gen)[1], expect,
+        5, B, "var_train" if profile else None)
+    _check_train_step(torch, "VAR train step", _tiny_var_train)
+    return expect, s_step, peak
 
 
 def main_path_phase(torch, cfg, profile: bool):
@@ -1432,13 +1714,15 @@ def main() -> None:
     profile = "--profile" in sys.argv[1:]
     cfg = control_var_config_from_depth(16, multi_cond=True)
     cfg24 = control_var_config_from_depth(24, multi_cond=True)
+    # VAR-d16 with configs/train_var_imagenet_d16.yaml's drop path and cond drop
+    var16 = var_config_from_depth(16, drop_path_rate=0.1, cond_drop_rate=0.1)
     phase("K1 decode attention vs plain")
     k1 = k1_phase(torch, cfg, cfg24)
     torch.cuda.empty_cache()
     phase("K2 bisection sampling vs plain")
     k2 = k2_phase(torch, cfg.vocab_size, cfg.patch_nums)
     phase("K3 flash attention and K4 backward vs plain")
-    k3, k4 = flash_phase(torch, cfg)
+    k3, k4 = flash_phase(torch, cfg, var16)
     phase("K5 prefix decode and K6 in-place decode vs plain")
     k5, k6 = prefix_phase(torch, cfg24)
     torch.cuda.empty_cache()
@@ -1449,7 +1733,17 @@ def main() -> None:
     phase("small-input reference")
     reference_phase(torch)
     phase("training path: ControlVAR-d16 train step, B=8")
-    (k3["launches"], k4["launches"]), s_step = train_path_phase(torch, cfg, profile)
+    (k3["launches"], k4["launches"]), s_step, policies = train_path_phase(torch, cfg,
+                                                                             profile)
+    torch.cuda.empty_cache()
+    phase("checkpoints: VAR-d16 and ch-160 VQVAE .pth round trip")
+    var_params = ckpt_phase(torch, var16)
+    phase("fine-tuning path: VAR-d16 -> ControlVAR-d16 surgery, LoRA r16 steps, B=8")
+    lora_counts, lora_s, lora_peak = finetune_phase(torch, cfg, var_params, profile)
+    torch.cuda.empty_cache()
+    phase("VAR training path: VAR-d16 train step, B=8")
+    var_counts, var_s, var_peak = var_train_phase(torch, var16, var_params, profile)
+    del var_params
     torch.cuda.empty_cache()
     phase("serving path: ControlVAR-d16 control-conditioned generation, B=16")
     (k1["launches"], k2["launches"]), img_s = main_path_phase(torch, cfg, profile)
@@ -1471,7 +1765,13 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     rates = lambda res: ", ".join(f"{mode} {r[1]:.3f} img/s" for mode, r in res.items())
-    print(f"training path: {s_step:.4f} s/step ({8 / s_step:.3f} img/s); serving path: "
+    print(f"training path: {s_step:.4f} s/step ({8 / s_step:.3f} img/s); remat "
+          + ", ".join(f"{r} {v[0]:.4f} s/step {v[1]:.2f} GiB K3 {v[2]}"
+                      for r, v in policies.items())
+          + f"; fine-tuning path (LoRA r16): {lora_s:.4f} s/step, {lora_peak:.2f} GiB, K3/K4 "
+          f"{lora_counts[0]}/{lora_counts[1]} a step; VAR-d16 training path: {var_s:.4f} "
+          f"s/step ({8 / var_s:.3f} img/s), {var_peak:.2f} GiB, K3/K4 {var_counts[0]}/"
+          f"{var_counts[1]} a step; serving path: "
           f"{img_s:.3f} img/s; joint path: {rates(joint)}; VAR-d12: {rates(v12)}; VAR-d13: "
           f"{rates(v13)} on")
     print(smi)

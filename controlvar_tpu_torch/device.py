@@ -33,6 +33,16 @@ def generator_for(seed: int) -> torch.Generator:
     return g
 
 
+def tree_map(fn, tree):
+    """A new tree of the same dicts and lists (tuples become lists) with fn
+    applied to every other node."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def tree_to(tree, device: torch.device, dtype=None):
     """Move every tensor of a nested dict/list parameter tree to `device`
     (and, for floating tensors, to `dtype` when given)."""

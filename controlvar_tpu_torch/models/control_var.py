@@ -100,7 +100,7 @@ class ControlVARModel:
     def forward_train(self, params: Params, labels: torch.Tensor, x_tf: torch.Tensor,
                       cond_type: Optional[torch.Tensor] = None, mask_first: bool = True,
                       generator: Optional[torch.Generator] = None, train: bool = True,
-                      compute_dtype=torch.bfloat16) -> torch.Tensor:
+                      compute_dtype=torch.bfloat16, remat: str = "full") -> torch.Tensor:
         """Teacher-forced logits (B, L, head_vocab) fp32.
 
         labels (B,) class ids; x_tf (B, L - first_l, Cvae) interleaved
@@ -108,8 +108,9 @@ class ControlVARModel:
         and a generator, the class (and cond type) is dropped to the
         unconditional id with probability cond_drop_rate, and drop path is
         drawn from the same generator; with train, every layer is recomputed
-        in the backward. The residual stream runs in compute_dtype: bf16 on
-        the GPU, where attention goes through K3/K4.
+        in the backward under the remat policy (`transformer.blocks_forward`).
+        The residual stream runs in compute_dtype: bf16 on the GPU, where
+        attention goes through K3/K4.
         """
         cfg = self.cfg
         if cfg.separator or cfg.type_pos or cfg.shared_aln or cfg.bidirectional:
@@ -123,7 +124,7 @@ class ControlVARModel:
         x = tfm.blocks_forward(params["blocks"], x.to(compute_dtype), cond, cfg,
                                self._attn_mask.to(x.device),
                                flags=self._tile_flags.to(x.device), train=train,
-                               generator=generator)
+                               generator=generator, remat=remat)
         return tfm.head_logits(params, x, cond, cfg)
 
     # ---- joint sampling ------------------------------------------------------

@@ -9,8 +9,9 @@ AdaLN modulation and softmax run in fp32.
 The training forward (`blocks_forward`) runs the layers as a Python loop
 over views of the stacked params, with attention through `flash_mha`
 (kernels K3 forward and K4 backward on the GPU), optional per-sample drop
-path, and, when training, per-layer recompute (`torch.utils.checkpoint`,
-the JAX package's default `full` remat policy).
+path, and, when training, per-layer recompute (`torch.utils.checkpoint`)
+under one of the JAX package's remat policies, `full` (the default),
+`dots` or `dots_attn`.
 
 Decode keeps a preallocated K/V cache per stream, written in place: each
 layer-step writes its fresh rows [pos, pos + l) and attention reads rows
@@ -31,12 +32,14 @@ Stacked params (leading dim = depth), dense kernels as (in, out):
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from controlvar_tpu_torch.config import VARConfig
 from controlvar_tpu_torch.ops.attention import (decode_attention, decode_attention_flat,
@@ -138,16 +141,26 @@ def _ada_all_layers(bp: Params, cond_act: torch.Tensor, cfg: VARConfig) -> torch
     return ada.reshape(cfg.depth, -1, 6, cfg.embed_dim)
 
 
-def _block_body(lp: Params, h: torch.Tensor, ada: torch.Tensor, cfg: VARConfig,
-                attn_fn, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One layer: AdaLN-modulated pre-norm -> fused QKV -> attention ->
-    gamma-gated residual -> modulated FFN residual. keep: optional (2, B)
-    drop-path factors (mask / keep rate) of the attention and FFN branches."""
-    g1, g2, s1, s2, sh1, sh2 = (a.reshape(-1, 1, cfg.embed_dim)
-                                for a in ada.unbind(dim=1))
+def _ada_parts(ada: torch.Tensor, cfg: VARConfig):
+    """(g1, g2, s1, s2, sh1, sh2), each (B, 1, C), of a layer's (B, 6, C)
+    modulation."""
+    return tuple(a.reshape(-1, 1, cfg.embed_dim) for a in ada.unbind(dim=1))
+
+
+def _attn_in(lp: Params, h: torch.Tensor, ada: torch.Tensor, cfg: VARConfig):
+    """A layer's attention inputs: AdaLN-modulated pre-norm -> fused QKV."""
+    _, _, s1, _, sh1, _ = _ada_parts(ada, cfg)
     hn = layer_norm(h, cfg.norm_eps)
     hn = (hn.float() * (s1 + 1.0) + sh1).to(h.dtype)
-    o = attn_fn(*_qkv(lp, hn, cfg))
+    return _qkv(lp, hn, cfg)
+
+
+def _block_out(lp: Params, h: torch.Tensor, o: torch.Tensor, ada: torch.Tensor,
+               cfg: VARConfig, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A layer after its attention output o (B, H, L, hd): projection ->
+    gamma-gated residual -> modulated FFN residual. keep: optional (2, B)
+    drop-path factors (mask / keep rate) of the attention and FFN branches."""
+    g1, g2, _, s2, _, sh2 = _ada_parts(ada, cfg)
     B, H, Lq, hd = o.shape
     o = o.transpose(1, 2).reshape(B, Lq, H * hd)
     o = o @ lp["proj"]["kernel"].to(o.dtype) + lp["proj"]["bias"].to(o.dtype)
@@ -161,6 +174,12 @@ def _block_body(lp: Params, h: torch.Tensor, ada: torch.Tensor, cfg: VARConfig,
     if keep is not None:
         f = f * keep[1].reshape(B, 1, 1)
     return h + f
+
+
+def _block_body(lp: Params, h: torch.Tensor, ada: torch.Tensor, cfg: VARConfig,
+                attn_fn, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One layer: `_attn_in`, attention, `_block_out`."""
+    return _block_out(lp, h, attn_fn(*_attn_in(lp, h, ada, cfg)), ada, cfg, keep)
 
 
 def _drop_path(generator: torch.Generator, rates, batch: int,
@@ -194,21 +213,47 @@ def _unbind_layers(bp: Params, depth: int):
     return [pick(views, li) for li in range(depth)]
 
 
+REMAT_POLICIES = ("full", "dots", "dots_attn")
+# the 2-D weight matmuls of a layer (qkv, proj, fc1, fc2) reach the
+# dispatcher as aten.mm (x @ W) or aten.addmm; attention's batched products
+# are bmm and are not saved, as dots_with_no_batch_dims_saveable saves none
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of `dots`: keep the weight-matmul outputs,
+    recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_dots_context = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+_CKPT = dict(use_reentrant=False, preserve_rng_state=False)  # no draws inside a layer
+
+
 def blocks_forward(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfig,
                    mask: torch.Tensor, *, flags: Optional[torch.Tensor] = None,
-                   train: bool = False,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                   train: bool = False, generator: Optional[torch.Generator] = None,
+                   remat: str = "full") -> torch.Tensor:
     """Full-sequence forward through all blocks, attention through
     `flash_mha` (K3/K4 on the GPU).
 
     x: (B, L, C) residual stream (bf16 on the GPU); cond: (B, C) fp32;
     mask: (L, L) bool on x's device, flags its `tile_flags`. With train and
     a generator, drop path is drawn from the generator. With train, each
-    layer is recomputed in the backward, so only the per-layer residual
-    stream is kept (the JAX package's default policy `full`).
+    layer is recomputed in the backward under the remat policy (the JAX
+    package's `_remat_wrap`; it changes what is saved, never the math):
+      full:      only the per-layer residual stream is kept (the default);
+      dots:      the weight-matmul outputs (qkv, proj, fc1, fc2) are kept
+                 too, so the recompute skips them;
+      dots_attn: as dots, and the layer is checkpointed as two segments
+                 around the attention, whose output (with q, k, v and the
+                 LSE, saved by `flash_mha` for K4) is kept: the backward
+                 never reruns K3.
     """
     if cfg.shared_aln:
         raise NotImplementedError("shared_aln is not ported yet")
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat={remat!r}: want one of {'|'.join(REMAT_POLICIES)}")
     D, B = cfg.depth, x.shape[0]
     ada_all = _ada_all_layers(bp, F.silu(cond.float()), cfg)
     keep = None
@@ -219,12 +264,18 @@ def blocks_forward(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConf
     attn_fn = lambda q, k, v: flash_mha(q, k, v, mask, scale, flags)
     for li, lp in enumerate(_unbind_layers(bp, D)):
         k_li = None if keep is None else keep[li]
-        if train:
-            # the body draws no random numbers: no RNG state to restore
-            x = checkpoint(_block_body, lp, x, ada_all[li], cfg, attn_fn, k_li,
-                           use_reentrant=False, preserve_rng_state=False)
-        else:
+        if not train:
             x = _block_body(lp, x, ada_all[li], cfg, attn_fn, k_li)
+        elif remat == "full":
+            x = checkpoint(_block_body, lp, x, ada_all[li], cfg, attn_fn, k_li, **_CKPT)
+        elif remat == "dots":
+            x = checkpoint(_block_body, lp, x, ada_all[li], cfg, attn_fn, k_li,
+                           context_fn=_dots_context, **_CKPT)
+        else:
+            q, k, v = checkpoint(_attn_in, lp, x, ada_all[li], cfg,
+                                 context_fn=_dots_context, **_CKPT)
+            x = checkpoint(_block_out, lp, x, attn_fn(q, k, v), ada_all[li], cfg, k_li,
+                           context_fn=_dots_context, **_CKPT)
     return x
 
 

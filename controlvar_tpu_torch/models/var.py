@@ -1,17 +1,17 @@
 """VAR: the class-conditional next-scale autoregressive transformer.
 
-Port of `controlvar_tpu/models/var.py` for generation: parameters, the
-embedding helpers and class-conditional CFG sampling. Sampling runs
-`eval/stepwise.py:StepwiseVARSampler`: in eager PyTorch the JAX package's
-one-jit `sample_cfg` and its stepwise sampler are the same loop. The
-teacher-forced `forward_train` is not ported yet.
+Port of `controlvar_tpu/models/var.py`: parameters, the embedding helpers,
+the teacher-forced training forward and class-conditional CFG sampling.
+Sampling runs `eval/stepwise.py:StepwiseVARSampler`: in eager PyTorch the
+JAX package's one-jit `sample_cfg` and its stepwise sampler are the same
+loop.
 
 Params: word_embed{kernel, bias}, class_emb (K+1, C), pos_start, pos_1LC,
 lvl_embed (S, C), blocks{... stacked ...}, head_nm, head.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -19,7 +19,8 @@ import torch
 from controlvar_tpu_torch.config import VARConfig
 from controlvar_tpu_torch.device import DeviceLike, generator_for, resolve_device, tree_to
 from controlvar_tpu_torch.models import transformer as tfm
-from controlvar_tpu_torch.models.masks import level_index_1L
+from controlvar_tpu_torch.models.masks import block_causal_mask, level_index_1L
+from controlvar_tpu_torch.ops.attention import tile_flags
 
 Params = Dict
 
@@ -33,6 +34,10 @@ class VARModel:
         # the (L,) scale index of every token, copied to the device once
         self._level_index = torch.from_numpy(level_index_1L(cfg.patch_nums)).long().to(
             self.device)
+        # the (L, L) block-causal training mask, copied to the device once,
+        # and the flags of its 64 x 64 tiles that the attention kernels read
+        self._attn_mask = torch.tensor(block_causal_mask(cfg.patch_nums), device=self.device)
+        self._tile_flags = tile_flags(self._attn_mask)
 
     def init_params(self, seed: int) -> Params:
         """Reference-default initialized fp32 params from a seed, on self.device."""
@@ -61,6 +66,40 @@ class VARModel:
 
     def _word_embed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         return x.float() @ params["word_embed"]["kernel"] + params["word_embed"]["bias"]
+
+    def _drop_class(self, labels: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        """Classifier-free-guidance training drop: each class id becomes the
+        unconditional id num_classes with probability cond_drop_rate."""
+        u = torch.rand(labels.shape[0], generator=generator).to(labels.device)
+        return torch.where(u < self.cfg.cond_drop_rate, self.cfg.num_classes, labels)
+
+    def forward_train(self, params: Params, labels: torch.Tensor, x_tf: torch.Tensor,
+                      generator: Optional[torch.Generator] = None, train: bool = True,
+                      compute_dtype=torch.bfloat16, remat: str = "full") -> torch.Tensor:
+        """Teacher-forced logits (B, L, V) fp32 (reference: var.py:209-253).
+
+        labels (B,) class ids; x_tf (B, L - first_l, Cvae) teacher-forcing
+        features. With train and a generator, each class is dropped to the
+        unconditional id with probability cond_drop_rate and drop path is
+        drawn from the same generator; with train, every layer is recomputed
+        in the backward under the remat policy (`transformer.blocks_forward`).
+        The residual stream runs in compute_dtype: bf16 on the GPU, where
+        attention goes through K3/K4 under the block-causal mask.
+        """
+        cfg = self.cfg
+        if cfg.shared_aln:
+            raise NotImplementedError("shared_aln is not ported yet")
+        if train and generator is not None:
+            labels = self._drop_class(labels, generator)
+        cond = params["class_emb"][labels]
+        sos = cond[:, None, :] + params["pos_start"]
+        x = torch.cat([sos, self._word_embed(params, x_tf)], dim=1)
+        x = x + self._lvl_pos(params)
+        x = tfm.blocks_forward(params["blocks"], x.to(compute_dtype), cond, cfg,
+                               self._attn_mask.to(x.device),
+                               flags=self._tile_flags.to(x.device), train=train,
+                               generator=generator, remat=remat)
+        return tfm.head_logits(params, x, cond, cfg)
 
     def sample_cfg(self, params: Params, vqvae, vq_params: Params, labels: torch.Tensor,
                    generator: torch.Generator, cfg_scale: float = 1.5, top_k: int = 0,

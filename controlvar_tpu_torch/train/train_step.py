@@ -1,11 +1,14 @@
-"""The ControlVAR training step.
+"""The training steps: ControlVAR, its LoRA fine-tune, and plain VAR.
 
 One optimizer step: frozen-VQVAE tokenization of the control and the image
 (two bf16 encoder passes, no gradient), teacher-forcing features, the
 scale-interleaved teacher-forced forward (attention through kernels K3/K4 on
-the GPU), masked cross-entropy, the global gradient norm, clipping as optax
+the GPU, each layer recomputed in the backward under the step's remat
+policy), masked cross-entropy, the global gradient norm, clipping as optax
 clips, and AdamW with the lr/wd of the step. Unlike the JAX package's pure
-step, this one updates the parameters and the optimizer state in place.
+steps, these update the parameters and the optimizer state in place.
+`LoRAControlVARTrainStep` trains only LoRA factors over a frozen base;
+`VARTrainStep` tokenizes one image a sample for the class-conditional VAR.
 
 Batch dict contract (tensors on the step's device):
   image  (B, 256, 256, 3) in [-1, 1]
@@ -19,13 +22,15 @@ lists of per-scale (B, pn^2) ids, in place of `image` and `mask`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
+from controlvar_tpu_torch.ckpt.lora import LoRAConfig, apply_lora, init_lora_params
 from controlvar_tpu_torch.config import OptimConfig
 from controlvar_tpu_torch.device import DeviceLike, resolve_device, tree_to
 from controlvar_tpu_torch.models.control_var import ControlVARModel
+from controlvar_tpu_torch.models.var import VARModel
 from controlvar_tpu_torch.models.vqvae import VQVAE
 from controlvar_tpu_torch.train.lr_schedule import lr_wd_at_step
 from controlvar_tpu_torch.train.param_groups import decay_groups, named_leaves
@@ -44,10 +49,11 @@ class TrainState:
 
 
 def make_optimizer(optim: OptimConfig, params: Params) -> torch.optim.AdamW:
-    """AdamW over two groups, decayed and not (`train/param_groups.py`); the
-    step writes each step's lr and wd into the groups. With eps 1e-8 and bias
-    correction, torch's decoupled decay equals optax's scale_by_adam, then
-    add_decayed_weights, then the lr scale."""
+    """AdamW over two groups, decayed (first) and not (`train/
+    param_groups.py`); the step writes each step's lr and wd into the
+    groups. With eps 1e-8 and bias correction, torch's decoupled decay
+    equals optax's scale_by_adam, then add_decayed_weights, then the lr
+    scale."""
     decay, no_decay = decay_groups(params)
     return torch.optim.AdamW(
         [{"params": decay, "weight_decay": optim.weight_decay},
@@ -114,19 +120,52 @@ def _microbatch(batch: Dict, i: int, size: int) -> Dict:
     return {k: cut(v) for k, v in batch.items()}
 
 
-class ControlVARTrainStep:
-    """The ControlVAR train step. Runs on `cuda` unless device="cpu" is
-    passed; the batch is moved to that device. The residual stream runs in
-    `compute_dtype` and the frozen tokenizer in `tokenize_dtype`."""
+def _clip_and_update(state: TrainState, grad_clip: float, lr: float, wd: float):
+    """Clip the gradients of state's params by their global norm as optax
+    clips, then take the optimizer step at (lr, wd), wd on the first (the
+    decayed) group only. Returns the norm before clipping."""
+    grads = [leaf.grad for _, leaf in named_leaves(state.params) if leaf.grad is not None]
+    grad_norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    # optax's clip_by_global_norm: g * max_norm / norm when norm >= max_norm
+    factor = torch.where(grad_norm < grad_clip, 1.0, grad_clip / grad_norm)
+    for g in grads:
+        g.mul_(factor)
+    groups = state.optimizer.param_groups
+    for group in groups:
+        group["lr"] = lr
+    groups[0]["weight_decay"] = wd
+    state.optimizer.step()
+    state.step += 1
+    return grad_norm
+
+
+class _TrainStep:
+    """What the steps share: the model, the frozen tokenizer, the optimizer
+    recipe and schedule, the device, the dtypes and the remat policy."""
 
     tokenize_dtype = torch.bfloat16
     compute_dtype = torch.bfloat16
 
-    def __init__(self, model: ControlVARModel, vqvae: VQVAE, optim: OptimConfig,
-                 max_steps: int, warmup_steps: int, device: DeviceLike = None):
+    def __init__(self, model: Union[ControlVARModel, VARModel], vqvae: VQVAE,
+                 optim: OptimConfig, max_steps: int, warmup_steps: int,
+                 device: DeviceLike = None, remat: str = "full"):
         self.model, self.vqvae, self.optim = model, vqvae, optim
         self.max_steps, self.warmup_steps = max_steps, warmup_steps
         self.device = resolve_device(device)
+        self.remat = remat
+
+    def _lr_wd(self, step: int) -> Tuple[float, float]:
+        optim = self.optim
+        return lr_wd_at_step(optim.schedule, step, optim.lr, optim.weight_decay, optim.wd_end,
+                             self.warmup_steps, self.max_steps, wp0=optim.warmup_init_frac)
+
+
+class ControlVARTrainStep(_TrainStep):
+    """The ControlVAR train step. Runs on `cuda` unless device="cpu" is
+    passed; the batch is moved to that device. The residual stream runs in
+    `compute_dtype`, the frozen tokenizer in `tokenize_dtype`, and the
+    layers are recomputed under `remat` (full | dots | dots_attn)."""
 
     def _loss_from_ids(self, params, vq_params, ctrl_ids: List[torch.Tensor],
                        img_ids: List[torch.Tensor], batch, generator, mask_first,
@@ -138,7 +177,7 @@ class ControlVARTrainStep:
         logits = self.model.forward_train(
             params, batch["cls"], x_tf, cond_type=batch.get("type"),
             mask_first=mask_first, generator=generator, train=True,
-            compute_dtype=self.compute_dtype)
+            compute_dtype=self.compute_dtype, remat=self.remat)
         ign = _aligned_ignore(self.model.cfg, batch.get("ignore_mask"), labels.shape[1])
         loss = _masked_ce(logits, labels, ign, loss_denom)
         acc = (logits.argmax(dim=-1) == labels).float().mean()
@@ -174,10 +213,7 @@ class ControlVARTrainStep:
         are summed: each microbatch loss is normalized by the whole batch's
         ignore-mask weight divided by accum, so the update equals the single
         big-batch step's."""
-        optim = self.optim
-        lr, wd = lr_wd_at_step(optim.schedule, state.step, optim.lr, optim.weight_decay,
-                               optim.wd_end, self.warmup_steps, self.max_steps,
-                               wp0=optim.warmup_init_frac)
+        lr, wd = self._lr_wd(state.step)
         loss_fn = self.loss_fn_tokens if from_tokens else self.loss_fn
         batch = tree_to(batch, self.device)
         state.optimizer.zero_grad(set_to_none=True)
@@ -198,16 +234,78 @@ class ControlVARTrainStep:
                                         mask_first, loss_denom=denom)
                 (loss_i / accum).backward()
                 aux = {k: aux[k] + aux_i[k] / accum for k in aux}
-        grads = [leaf.grad for _, leaf in named_leaves(state.params) if leaf.grad is not None]
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
-        # optax's clip_by_global_norm: g * max_norm / norm when norm >= max_norm
-        factor = torch.where(grad_norm < optim.grad_clip, 1.0, optim.grad_clip / grad_norm)
-        for g in grads:
-            g.mul_(factor)
-        decay_group, no_decay_group = state.optimizer.param_groups
-        decay_group["lr"] = no_decay_group["lr"] = lr
-        decay_group["weight_decay"] = wd
-        state.optimizer.step()
-        state.step += 1
+        grad_norm = _clip_and_update(state, self.optim.grad_clip, lr, wd)
+        return state, dict(aux, lr=lr, wd=wd, grad_norm=grad_norm)
+
+
+class LoRAControlVARTrainStep:
+    """The LoRA fine-tuning step (the JAX package's `LoRAControlVARTrainStep`;
+    reference peft path: train_control_var_hpu.py:449-470). Its TrainState
+    holds the LoRA (A, B) tree alone; the base params are merged on the fly
+    by `apply_lora`, detached, so only the factors get gradients, and the
+    clip's global norm is theirs. The loss, dtypes, device and remat policy
+    are those of `base`."""
+
+    def __init__(self, base: ControlVARTrainStep, lora_cfg: LoRAConfig):
+        self.base, self.lora_cfg = base, lora_cfg
+
+    def init_lora_state(self, generator: torch.Generator, base_params: Params,
+                        optim: OptimConfig) -> TrainState:
+        """Fresh factors (`init_lora_params`) and their optimizer: the JAX
+        chain clip, scale_by_adam, add_decayed_weights with no mask, lr, that
+        is one AdamW group that decays every A and B (the clip is the
+        step's)."""
+        lora = init_lora_params(generator, base_params, self.lora_cfg)
+        leaves = [leaf.requires_grad_(True) for _, leaf in named_leaves(lora)]
+        opt = torch.optim.AdamW([{"params": leaves, "weight_decay": optim.weight_decay}],
+                                lr=optim.lr, betas=(optim.beta1, optim.beta2), eps=1e-8)
+        return TrainState(lora, opt)
+
+    def step(self, state: TrainState, base_params: Params, vq_params, batch,
+             generator=None, mask_first: bool = True,
+             from_tokens: bool = False) -> Tuple[TrainState, Dict]:
+        """One optimizer step of the factors, in place on `state`; returns
+        (state, aux) as `ControlVARTrainStep.step` does. base_params is left
+        as it was and gets no gradient."""
+        base = self.base
+        lr, wd = base._lr_wd(state.step)
+        loss_fn = base.loss_fn_tokens if from_tokens else base.loss_fn
+        batch = tree_to(batch, base.device)
+        state.optimizer.zero_grad(set_to_none=True)
+        params = apply_lora(base_params, state.params, self.lora_cfg)
+        loss, aux = loss_fn(params, vq_params, batch, generator, mask_first)
+        loss.backward()
+        grad_norm = _clip_and_update(state, base.optim.grad_clip, lr, wd)
+        return state, dict(aux, lr=lr, wd=wd, grad_norm=grad_norm)
+
+
+class VARTrainStep(_TrainStep):
+    """The plain-VAR train step (reference: train_var_hpu.py:121-206). Runs
+    on `cuda` unless device="cpu" is passed. Batch: `image` (B, 256, 256, 3)
+    in [-1, 1], `cls` (B,), optional `ignore_mask` (B, L); the images are
+    tokenized by the frozen VQVAE inside the step, without gradient."""
+
+    def loss_fn(self, params, vq_params, batch, generator=None) -> Tuple[torch.Tensor, Dict]:
+        with torch.no_grad():
+            ids = self.vqvae.img_to_ids(vq_params, batch["image"],
+                                        compute_dtype=self.tokenize_dtype)
+            h = self.vqvae.ids_to_var_input(vq_params, ids)
+        labels, x_tf = torch.cat(ids, dim=1), torch.cat(h, dim=1)
+        logits = self.model.forward_train(params, batch["cls"], x_tf, generator=generator,
+                                          train=True, compute_dtype=self.compute_dtype,
+                                          remat=self.remat)
+        loss = _masked_ce(logits, labels, batch.get("ignore_mask"))
+        acc = (logits.argmax(dim=-1) == labels).float().mean()
+        return loss, {"loss": loss.detach(), "acc": acc}
+
+    def step(self, state: TrainState, vq_params, batch,
+             generator=None) -> Tuple[TrainState, Dict]:
+        """One optimizer step, in place on `state`; returns (state, aux) with
+        aux = {loss, acc, lr, wd, grad_norm}."""
+        lr, wd = self._lr_wd(state.step)
+        batch = tree_to(batch, self.device)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, aux = self.loss_fn(state.params, vq_params, batch, generator)
+        loss.backward()
+        grad_norm = _clip_and_update(state, self.optim.grad_clip, lr, wd)
         return state, dict(aux, lr=lr, wd=wd, grad_norm=grad_norm)

@@ -75,6 +75,22 @@ def test_entry_points_raise_without_cuda_and_device(no_cuda):
         StepwiseVARSampler(VARModel(var_cfg, device="cpu"), vqvae)
     with pytest.raises(RuntimeError, match="CUDA"):
         class_embedder.init_params(torch.Generator(), 10, 8)
+    from controlvar_tpu_torch.ckpt import torch_import
+    from controlvar_tpu_torch.ckpt.lora import LoRAConfig
+    from controlvar_tpu_torch.config import OptimConfig
+    from controlvar_tpu_torch.train.train_step import (ControlVARTrainStep,
+                                                       LoRAControlVARTrainStep, VARTrainStep)
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VARTrainStep(VARModel(var_cfg, device="cpu"), vqvae, OptimConfig(), 10, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LoRAControlVARTrainStep(ControlVARTrainStep(model, vqvae, OptimConfig(), 10, 1),
+                                LoRAConfig())
+    for convert, conv_cfg in ((torch_import.convert_vqvae_state_dict, vq_cfg),
+                              (torch_import.convert_var_state_dict, var_cfg),
+                              (torch_import.convert_control_var_state_dict, cfg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            convert({}, conv_cfg)
 
 
 def test_kernel_wrappers_reject_other_devices():
