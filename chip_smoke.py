@@ -12,7 +12,9 @@ Run from the root of a checkout. Phases, each fatal on failure:
      scale under an `indep` mask, at every scale of the d24 joint path's
      stacked cache (16 CFG rows x 24 heads) and at B*H = 70,000 heads (cur
      64, l 8); its and SDPA's device times at every serving scale and
-     summed over one call (x 16);
+     summed over one call (x 16); then at every scale's (l, cur) of the d16
+     separator joint path (16 CFG rows, l = 2 (pn^2 + 1), cur up to 1378),
+     with its and SDPA's times per scale and per call;
   4. K2 bisection sampling vs its plain version on the same noise at every
      scale's row count (top-k alone: the same ids on every row; with top-p:
      on >= 0.999 of them), on tied and on flat logits, at V = 1000, with
@@ -23,13 +25,15 @@ Run from the root of a checkout. Phases, each fatal on failure:
   5. K3 flash attention forward and K4 backward vs their plain versions at
      the d16 training shape (8, 16, 1360, 64) under the block-causal mask,
      at the VAR-d16 one (8, 16, 680, 64: a 40-row last tile) under its
-     block-causal mask, and under a random pattern of 64 x 64 tiles (fully
+     block-causal mask, at the d16 separator one (8, 16, 1378, 64: scale
+     edges off the 64-row tiles, a 34-row last tile) under its block-causal
+     mask, and under a random pattern of 64 x 64 tiles (fully
      masked tiles anywhere, the diagonal kept), with q, k, v and dO strided
      as the training path gives them, and at a small ragged shape under a causal
      mask; K3 also with rows that attend nowhere and at a scale that is not
      a power of two (0.9/32); K3 and K4 each run twice on the same inputs
      give the same bits; with their times, the plain versions' and SDPA's
-     (forward, and its autograd backward) at both training shapes;
+     (forward, and its autograd backward) at the three training shapes;
   6. K5 prefix decode vs its plain version at every scale's (pos, l) of
      the d24 joint path's segmented cache (16 CFG rows, 24 heads), over the
      full prefix and over the kv_window=2 one, on the views
@@ -56,9 +60,11 @@ Run from the root of a checkout. Phases, each fatal on failure:
   8. small-input reference: fp32 tokenizer ids on the GPU equal the CPU's;
      one bf16 decode step through each decode kernel (K1; the segmented
      mode, K5; in place, K6; the flat layout of three heads of 64, K7; the
-     fused cache, K8) agrees with the fp32 CPU path; one tiny-config bf16
-     train step through K3/K4 agrees with the fp32 CPU step (loss, and the
-     direction of the whole gradient and of each block leaf's);
+     fused cache, K8; a shared_aln model, K1) agrees with the fp32 CPU
+     path; one tiny-config bf16 train step through K3/K4 agrees with the
+     fp32 CPU step (loss, and the direction of the whole gradient and of
+     each block leaf's), and so does a tiny shared_aln VAR step; the native
+     RLE library builds (native.available());
   9. the training path at full width: ControlVAR-d16 (multi_cond), the
      ch-160 VQVAE frozen inside the step, B=8 seeded 256x256 image/mask
      batches, AdamW (OptimConfig(total_batch_size=8)), one warm-up step and
@@ -102,7 +108,31 @@ Run from the root of a checkout. Phases, each fatal on failure:
      kv_fused (K8 120), one warm-up and one timed call each and four
      alternated rounds; then VAR-d13, whose 13 heads take the flat layout
      (K7 130), one warm-up and one timed call; K2 10 a call in each, the
-     launch counts of K1, K2, K7 and K8 read around every call.
+     launch counts of K1, K2, K7 and K8 read around every call;
+ 16. the separator data path: SyntheticControlDataset(separator=True)
+     through the Loader (B=8, four batches), pretokenize with the ch-160
+     VQVAE on the card into four token shards (a warm-up pass, then a
+     timed one: samples/s; the ids read_token_shard gives back equal
+     img_to_ids of the same batches bit for bit), then TokenShardLoader
+     feeding ControlVAR-d16 multi_cond with separator and type_pos (L =
+     1378, head vocab 4114) through ControlVARTrainStep(from_tokens=True),
+     with the spliced ignore mask 1 and the labels separator targets at
+     every separator column: one warm-up and three timed steps (K3/K4
+     32/16 a step), s/step and peak memory;
+ 17. the separator joint path: StepwiseJointSampler on that config (AdaLN
+     gates raised) at B=8, stacked cache: a warm-up and a timed call (K1
+     160, K2 10), then two greedy calls with equal ids and canvases, every
+     id in [0, 4096);
+ 18. bidirectional training: ControlVAR-d16 bidirectional (class SOS,
+     mask_factor 2) on a Loader batch: the two orders' losses at the same
+     params differ; one pixel step with mask_first=True and one with False,
+     both finite (K3/K4 32/16 each);
+ 19. ControlVARModel.sample_cond_cfg against StepwiseCondSampler: d16
+     multi_cond, gates raised, B=16, force="control", greedy, repeat_num 4
+     and 3: every draw's ids and both f_hats bit-equal (K1 160, K2 10 a
+     call);
+ 20. shared_aln: VAR-d16 with shared_aln, StepwiseVARSampler at B=16 (gates
+     raised; K1 160, K2 10 a call) and VARTrainStep at B=8 (K3/K4 32/16).
 Prints the card, a `kernels` JSON line (K1-K8) and, last,
 {"ok": true, "device": ...}.
 It exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -113,6 +143,7 @@ kernel tables go to chiprun_out/chip_smoke_profile_<path>.txt.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -247,7 +278,7 @@ def scale_times(name, cases, depth, call) -> None:
           f"{per_call[0]:.4f} ms, sdpa {per_call[1]:.4f} ms")
 
 
-def k1_phase(torch, cfg, cfg24):
+def k1_phase(torch, cfg, cfg24, sep_cfg):
     """Decode attention vs its plain version; returns the kernels-line entry."""
     import torch.nn.functional as F
 
@@ -303,6 +334,24 @@ def k1_phase(torch, cfg, cfg24):
                     for _ in range(2))
     errs.append(case("K1 B*H=70000 l=8 cur=64", rand_q(8, 4375, 16), big_k, big_v, 1, 64))
     del big_k, big_v
+    # every scale of the d16 separator joint path (16 CFG rows): l = 2 (pn^2 + 1)
+    # after scale 0, the scale edges at 2, 12, 32, ... off the 64-row tiles
+    cks, cvs = (torch.randn(2, 16, H, sep_cfg.seq_len, hd, generator=g, device=dev).to(bf)
+                for _ in range(2))
+    for si, (lo, cur) in enumerate(sep_cfg.begin_ends):
+        errs.append(case(f"K1 d16 separator l={cur - lo} cur={cur}", rand_q(cur - lo, 16), cks,
+                         cvs, si % 2, cur))
+
+    def sep_cases():
+        for lo, cur in sep_cfg.begin_ends:
+            q = rand_q(cur - lo, 16)
+            kc, vc = cks[1, :, :, :cur].contiguous(), cvs[1, :, :, :cur].contiguous()
+            yield (f"l={cur - lo} cur={cur}",
+                   lambda: decode_attention(q, cks, cvs, 1, cur, scale),
+                   lambda: F.scaled_dot_product_attention(q, kc, vc, scale=scale))
+
+    scale_times("K1 separator", sep_cases(), sep_cfg.depth, "d16 separator joint call")
+    del cks, cvs
 
     # K1 and SDPA (over contiguous K/V made outside the time) at every scale
     def k1_cases():
@@ -472,11 +521,13 @@ def _bwd_mags(torch, q, k, v, mask, out, lse, do, scale):
             p.transpose(-1, -2) @ do.float().abs())
 
 
-def flash_phase(torch, cfg, var_cfg):
+def flash_phase(torch, cfg, var_cfg, sep_cfg):
     """K3 and K4 vs their plain versions at the d16 training shape, at the
-    VAR-d16 one (L = 680: a 40-row last tile, the plain block-causal mask)
-    and at a small ragged one; times at both training shapes. Returns the
-    two kernels-line entries (at the ControlVAR-d16 shape)."""
+    VAR-d16 one (L = 680: a 40-row last tile, the plain block-causal mask),
+    at the d16 separator one (L = 1378: scale edges off the 64-row grid, a
+    34-row last tile) and at a small ragged one; times at the three training
+    shapes. Returns the two kernels-line entries (at the ControlVAR-d16
+    shape)."""
     import torch.nn.functional as F
 
     from controlvar_tpu_torch.models.masks import attn_mask_for_config
@@ -519,10 +570,13 @@ def flash_phase(torch, cfg, var_cfg):
 
     train_mask = torch.from_numpy(attn_mask_for_config(cfg)).to(dev)
     var_mask = torch.from_numpy(attn_mask_for_config(var_cfg)).to(dev)
+    sep_mask = torch.from_numpy(attn_mask_for_config(sep_cfg)).to(dev)
     cases = [("d16 train (8, 16, 1360, 64), block-causal, strided", 8, cfg.num_heads,
               train_mask, True),
              ("VAR-d16 train (8, 16, 680, 64), block-causal, strided", 8, var_cfg.num_heads,
               var_mask, True),
+             ("d16 separator train (8, 16, 1378, 64), block-causal, strided", 8,
+              sep_cfg.num_heads, sep_mask, True),
              ("ragged (2, 3, 100, 64), causal", 2, 3,
               torch.ones(100, 100, dtype=torch.bool, device=dev).tril(), False),
              ("random 64x64 tile pattern (8, 16, 1360, 64), strided", 8, cfg.num_heads,
@@ -596,8 +650,8 @@ def flash_phase(torch, cfg, var_cfg):
         lib4 = cuda_ms(lambda: torch.autograd.grad(o_lib, (qq, kk, vv), do, retain_graph=True),
                        20)
         n = B * H * L * hd
-        # the work the function needs: the mask's unmasked scores only (61.9%
-        # of L x L at both shapes), 2 matmul FLOP per score and hd for each
+        # the work the function needs: the mask's unmasked scores only (about
+        # 62% of L x L at these shapes), 2 matmul FLOP per score and hd for each
         # product, 2 products in the forward (QK^T, PV) and 5 in the backward
         # (S, dP, dV, dQ, dK)
         per_score = B * H * hd * int(mask.sum())
@@ -611,6 +665,7 @@ def flash_phase(torch, cfg, var_cfg):
 
     (ms3, plain3, lib3, b3), (ms4, plain4, lib4, b4) = times("d16 train shape", B, H, train_mask)
     times("VAR-d16 train shape (8, 16, 680, 64)", 8, var_cfg.num_heads, var_mask)
+    times("d16 separator train shape (8, 16, 1378, 64)", 8, sep_cfg.num_heads, sep_mask)
     return (dict(name="flash_attention", route="cuda",
                  source="controlvar_tpu_torch/csrc/flash_attention.cu",
                  replaces="controlvar_tpu/ops/attention.py:99", max_abs_err=max(errs3),
@@ -978,11 +1033,7 @@ def reference_phase(torch):
         and the FFN gate by 1 it moves y by 5.7e-2, against bf16 noise of
         3.7e-3 (the CPU's own bf16 step), so the 2e-2 limit below tells them
         apart."""
-        p = ControlVARModel(cfg, device="cpu").init_params(1)["blocks"]
-        C = cfg.embed_dim
-        p["ada_lin"]["bias"][:, :C] += 10.0
-        p["ada_lin"]["bias"][:, C: 2 * C] += 1.0
-        return p
+        return raise_gates(ControlVARModel(cfg, device="cpu").init_params(1))["blocks"]
 
     def inputs(C):
         gx = torch.Generator().manual_seed(2)
@@ -997,6 +1048,22 @@ def reference_phase(torch):
         ck, cv = tfm.init_kv_cache(cfg, 4, cfg.seq_len, dtype, device, fused=fused)
         _, ck, cv = tfm.blocks_decode(bp, x0.to(dtype), cond, cfg, ck, cv, 0, **kw)
         y, _, _ = tfm.blocks_decode(bp, x1.to(dtype), cond, cfg, ck, cv, 2, **kw)
+        return y.float().cpu()
+
+    shared_cfg = ControlVARConfig(embed_dim=128, num_heads=2, shared_aln=True, **tiny)
+    shared_p = raise_gates(ControlVARModel(shared_cfg, device="cpu").init_params(1))
+
+    def run_shared(device, dtype, xs=inputs(128)):
+        """Two decode steps of a shared_aln model (K1): every layer's
+        ada_gss added to the one modulation of shared_ada_lin."""
+        bp = tree_to(shared_p["blocks"], device, dtype)
+        lin = tree_to(shared_p["shared_ada_lin"], device)
+        x0, x1, cond = (t.to(device) for t in xs)
+        ck, cv = tfm.init_kv_cache(shared_cfg, 4, shared_cfg.seq_len, dtype, device)
+        _, ck, cv = tfm.blocks_decode(bp, x0.to(dtype), cond, shared_cfg, ck, cv, 0,
+                                      shared_lin=lin)
+        y, _, _ = tfm.blocks_decode(bp, x1.to(dtype), cond, shared_cfg, ck, cv, 2,
+                                    shared_lin=lin)
         return y.float().cpu()
 
     def run_seg(device, dtype, p=gated(cfg), xs=inputs(128)):
@@ -1022,7 +1089,8 @@ def reference_phase(torch):
              decode_attention_inplace, 4),
             ("flat-layout step, 3 heads of 64 (K7)", flat, decode_attention_flat, 4),
             ("fused-cache step (K8)", functools.partial(run, fused=True),
-             decode_attention_fused, 4)):
+             decode_attention_fused, 4),
+            ("shared_aln decode step (K1)", run_shared, decode_attention, 4)):
         want = fn("cpu", torch.float32)
         kernel.launches = 0
         got = fn("cuda", torch.bfloat16)
@@ -1036,6 +1104,28 @@ def reference_phase(torch):
     print("reference: tokenizer ids equal")
 
     _check_train_step(torch, "train step", _tiny_train)
+    _check_train_step(torch, "shared_aln VAR train step",
+                      functools.partial(_tiny_var_train, shared_aln=True))
+    from controlvar_tpu_torch import native
+
+    if not native.available():
+        fail("reference: the native RLE library did not build")
+    print("reference: the native RLE library builds and loads (native.available())")
+
+
+def raise_gates(params):
+    """params with the AdaLN gates raised in place (attention by 10, FFN by
+    1; the ada_lin bias, or ada_gss under shared_aln): at init they are 1e-3
+    of the rest, which leaves attention out of the outputs."""
+    b = params["blocks"]
+    if "ada_gss" in b:
+        b["ada_gss"][:, 0] += 10.0
+        b["ada_gss"][:, 1] += 1.0
+    else:
+        C = b["ada_lin"]["bias"].shape[1] // 6
+        b["ada_lin"]["bias"][:, :C] += 10.0
+        b["ada_lin"]["bias"][:, C: 2 * C] += 1.0
+    return params
 
 
 def _check_train_step(torch, label, run):
@@ -1335,10 +1425,11 @@ def finetune_phase(torch, cfg, var_params, profile: bool):
     return expect, s_step, peak
 
 
-def _tiny_var_train(torch, device, dtype):
-    """One pixel step of VARTrainStep at a tiny config (hd = 64, L = 21)
-    from fixed weights and images, the fp32 tokenizer on both devices (its
-    ids are equal there); returns (loss, grad_norm, flattened gradients)."""
+def _tiny_var_train(torch, device, dtype, shared_aln=False):
+    """One pixel step of VARTrainStep at a tiny config (hd = 64, L = 21;
+    with shared_aln, the AdaLN modulations from shared_ada_lin) from fixed
+    weights and images, the fp32 tokenizer on both devices (its ids are
+    equal there); returns (loss, grad_norm, flattened gradients)."""
     from controlvar_tpu_torch.config import OptimConfig, VARConfig, VQVAEConfig
     from controlvar_tpu_torch.models.var import VARModel
     from controlvar_tpu_torch.models.vqvae import VQVAE
@@ -1346,7 +1437,7 @@ def _tiny_var_train(torch, device, dtype):
     from controlvar_tpu_torch.train.train_step import VARTrainStep, init_train_state
 
     cfg = VARConfig(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4), vocab_size=128,
-                    cvae=32, num_classes=8, cond_drop_rate=0.0)
+                    cvae=32, num_classes=8, cond_drop_rate=0.0, shared_aln=shared_aln)
     vq_cfg = VQVAEConfig(ch=32, patch_nums=(1, 2, 4), vocab_size=128)
     model, vqvae = VARModel(cfg, device=device), VQVAE(vq_cfg, device=device)
     step = VARTrainStep(model, vqvae, OptimConfig(), max_steps=100, warmup_steps=2,
@@ -1597,6 +1688,321 @@ def var_path_phase(torch, cfg, modes, profile: bool, timed_rounds: bool):
     return results
 
 
+@contextlib.contextmanager
+def recorded_draws(*modules):
+    """The id tensors of every draw made through the modules'
+    `sample_top_k_top_p`, in order."""
+    calls, saved = [], [(m, m.sample_top_k_top_p) for m in modules]
+
+    def spy(orig):
+        def draw(*args, **kwargs):
+            calls.append(orig(*args, **kwargs))
+            return calls[-1]
+        return draw
+
+    for m, orig in saved:
+        m.sample_top_k_top_p = spy(orig)
+    try:
+        yield calls
+    finally:
+        for m, orig in saved:
+            m.sample_top_k_top_p = orig
+
+
+def _reset(*kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def separator_data_phase(torch, cfg, profile: bool):
+    """The data path into a separator/type_pos step: SyntheticControlDataset
+    (separator=True) through the Loader at B=8, four batches, pretokenized
+    on the card by the ch-160 VQVAE into four shards (the ids bit-equal to
+    img_to_ids of the same batches), then TokenShardLoader feeding
+    ControlVAR-d16 multi_cond with separator and type_pos (L = 1378, head
+    vocab 4114) through ControlVARTrainStep(from_tokens=True): one warm-up
+    and three timed steps. Returns (shard rate in samples/s, s/step, peak
+    GiB, (K3, K4) a step)."""
+    import glob
+    import itertools
+
+    import numpy as np
+
+    from controlvar_tpu_torch.config import OptimConfig, VQVAEConfig
+    from controlvar_tpu_torch.data.build import Loader, to_device
+    from controlvar_tpu_torch.data.imagenetc import SyntheticControlDataset
+    from controlvar_tpu_torch.data.shards import TokenShardLoader, pretokenize, read_token_shard
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.train.train_step import (ControlVARTrainStep, _aligned_ignore,
+                                                       init_train_state, interleave_tokens)
+
+    B, n_batches, V = 8, 4, cfg.vocab_size
+    ds = SyntheticControlDataset(image_size=256, num_classes=cfg.num_classes,
+                                 patch_nums=cfg.patch_nums, separator=True, length=B * n_batches)
+    loader = Loader(ds, batch_size=B, seed=0, num_workers=4)
+    vqvae = VQVAE(VQVAEConfig())
+    vq_params = vqvae.init_params(1)
+    with _scratch_dir() as d:
+        pretokenize(vqvae, vq_params, loader, os.path.join(d, "warm-up"))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = pretokenize(vqvae, vq_params, loader, os.path.join(d, "shards"))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        paths = sorted(glob.glob(os.path.join(d, "shards", "tokens_*.npz")))
+        if n != n_batches or len(paths) != n_batches:
+            fail(f"pretokenize: {n} shards, {len(paths)} files, expected {n_batches}")
+        for path, batch in zip(paths, loader.epoch(0)):
+            shard = read_token_shard(path)
+            for key, img in (("ctrl_ids", "mask"), ("img_ids", "image")):
+                want = vqvae.img_to_ids(vq_params, to_device(batch[img], "cuda"),
+                                        compute_dtype=torch.bfloat16)
+                if not all(np.array_equal(a, b.cpu().numpy()) for a, b in zip(shard[key], want)):
+                    fail(f"pretokenize: {os.path.basename(path)} {key} differ from img_to_ids")
+            if not np.array_equal(shard["ignore_mask"], batch["ignore_mask"]):
+                fail(f"pretokenize: {os.path.basename(path)} ignore_mask differs")
+        size = sum(os.path.getsize(p) for p in paths)
+        print(f"pretokenize: {n} shards of B={B} ({size / 1e3:.1f} kB) in {dt:.3f} s = "
+              f"{B * n / dt:.3f} samples/s (an image and its control each, bf16 ch-160 VQVAE); "
+              f"read_token_shard ids equal img_to_ids of the same batches, bit for bit")
+        batches = list(TokenShardLoader(os.path.join(d, "shards", "tokens_*.npz")).epoch(0))
+
+    # the label layout and the spliced ignore mask at the separator columns
+    b = to_device(batches[0], "cuda")
+    labels, _ = interleave_tokens(b["ctrl_ids"], b["img_ids"],
+                                  [t[..., None].float() for t in b["ctrl_ids"][1:]],
+                                  [t[..., None].float() for t in b["img_ids"][1:]], True,
+                                  separator=True, vocab_size=V)
+    ign = _aligned_ignore(cfg, b["ignore_mask"], cfg.seq_len)
+    sep_cols = [lo + pn * pn + j * (pn * pn + 1)
+                for (lo, _), pn in list(zip(cfg.begin_ends, cfg.patch_nums))[1:] for j in (0, 1)]
+    if labels.shape[1] != cfg.seq_len or not bool((ign[:, sep_cols] == 1).all()):
+        fail("separator step: the ignore mask is not 1 at the separator columns")
+    if not bool((labels[:, sep_cols] >= V).all()) or bool((labels[:, :2] >= V).any()):
+        fail("separator step: the labels at the separator columns are not separator targets")
+    print(f"separator step: L={cfg.seq_len}, head vocab {cfg.head_vocab}; the ignore mask is 1 "
+          f"and the labels are separator targets (>= {V}) at all {len(sep_cols)} separator "
+          f"columns")
+
+    model = ControlVARModel(cfg)
+    optim = OptimConfig(total_batch_size=B)
+    stepper = ControlVARTrainStep(model, vqvae, optim, max_steps=1000, warmup_steps=10)
+    state = init_train_state(model.init_params(0), optim)
+    shard_batches, gen = itertools.cycle(batches), torch.Generator().manual_seed(13)
+    expect = _launches_per_step(cfg.depth, "full")
+    s_step, peak, _ = _timed_steps(
+        torch, "separator/type_pos d16 from-tokens train",
+        lambda: stepper.step(state, vq_params, next(shard_batches), gen, from_tokens=True)[1],
+        expect, 3, B, "sep_train" if profile else None)
+    return B * n / dt, s_step, peak, expect
+
+
+def separator_joint_phase(torch, cfg):
+    """StepwiseJointSampler on the separator/type_pos ControlVAR-d16 at B=8,
+    stacked cache, AdaLN gates raised: a warm-up and a timed call (top-k
+    900, top-p 0.96), then two greedy calls whose ids are equal and lie in
+    [0, V). Returns (img/s, (K1, K2) a call)."""
+    import controlvar_tpu_torch.eval.stepwise as stepwise
+    from controlvar_tpu_torch.config import VQVAEConfig
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.ops.attention import decode_attention
+    from controlvar_tpu_torch.ops.sample_kernel import sample_top_k_top_p_bisect
+
+    B, D, S = 8, cfg.depth, cfg.num_scales
+    model, vqvae = ControlVARModel(cfg), VQVAE(VQVAEConfig())
+    sampler = stepwise.StepwiseJointSampler(model, vqvae)
+    greedy = stepwise.StepwiseJointSampler(model, vqvae, top_k=1, top_p=0.0)
+    params = sampler.prepare_params(raise_gates(model.init_params(2)))
+    vq_params = vqvae.init_params(1)
+    labels, cond_type = torch.arange(B) % cfg.num_classes, torch.arange(B) % 4
+
+    def call(s, seed, decode_img=True):
+        _reset(decode_attention, sample_top_k_top_p_bisect)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with recorded_draws(stepwise) as ids:
+            out = s(params, vq_params, labels, cond_type, torch.Generator().manual_seed(seed),
+                    decode_img=decode_img)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = (decode_attention.launches, sample_top_k_top_p_bisect.launches)
+        if counts != (D * S, S):
+            fail(f"separator joint: launches (K1, K2) = {counts}, expected {(D * S, S)}")
+        for t_ in out:
+            if not torch.isfinite(t_).all():
+                fail("separator joint: non-finite output")
+        if [int(x.shape[1]) for x in ids] != [cfg.scale_seg_len(si) for si in range(S)]:
+            fail("separator joint: a draw is not the scale's segment")
+        return dt, counts, [x.cpu() for x in ids], out
+
+    dt_warm = call(sampler, 20)[0]
+    dt, counts, ids, out = call(sampler, 21)
+    for t_ in out:
+        if tuple(t_.shape) != (B, 256, 256, 3) or float(t_.min()) < 0 or float(t_.max()) > 1:
+            fail(f"separator joint: bad canvas {tuple(t_.shape)}")
+    _, _, a, fa = call(greedy, 22, decode_img=False)
+    _, _, b, fb = call(greedy, 23, decode_img=False)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)) or not all(
+            torch.equal(x, y) for x, y in zip(fa, fb)):
+        fail("separator joint: greedy ids or canvases differ between two calls")
+    if not all(0 <= int(x.min()) and int(x.max()) < cfg.vocab_size for x in a + ids):
+        fail("separator joint: a drawn id lies outside [0, V)")
+    print(f"separator joint: warm-up call {dt_warm:.3f} s; timed call {dt:.4f} s for {B} images "
+          f"= {B / dt:.3f} img/s; launches K1={counts[0]} K2={counts[1]}; greedy ids and "
+          f"canvases equal over two calls, every id in [0, {cfg.vocab_size})")
+    return B / dt, counts
+
+
+def bidirectional_phase(torch, cfg):
+    """ControlVAR-d16 bidirectional (class SOS, mask_factor 2) on a Loader
+    batch (B=8, both orders' ignore masks): the loss of the two stream
+    orders at the same params (they differ), then one pixel step with
+    mask_first=True and one with False, K3/K4 32/16 each. Returns the two
+    steps' losses."""
+    import math
+
+    from controlvar_tpu_torch.config import OptimConfig, VQVAEConfig
+    from controlvar_tpu_torch.data.build import Loader, to_device
+    from controlvar_tpu_torch.data.imagenetc import SyntheticControlDataset
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+    from controlvar_tpu_torch.train.train_step import ControlVARTrainStep, init_train_state
+
+    B = 8
+    ds = SyntheticControlDataset(image_size=256, num_classes=cfg.num_classes,
+                                 patch_nums=cfg.patch_nums, length=B)
+    batch = next(iter(Loader(ds, batch_size=B, seed=2, num_workers=4).epoch(0)))
+    model, vqvae = ControlVARModel(cfg), VQVAE(VQVAEConfig())
+    optim = OptimConfig(total_batch_size=B)
+    stepper = ControlVARTrainStep(model, vqvae, optim, max_steps=1000, warmup_steps=10)
+    state = init_train_state(model.init_params(0), optim)
+    vq_params = vqvae.init_params(1)
+    with torch.no_grad():
+        both = [float(stepper.loss_fn(state.params, vq_params, to_device(batch, "cuda"), None,
+                                      mf)[0]) for mf in (True, False)]
+    if not all(map(math.isfinite, both)) or both[0] == both[1]:
+        fail(f"bidirectional: the two orders' losses at the same params are {both}")
+    gen, losses = torch.Generator().manual_seed(14), []
+    for mask_first in (True, False):
+        _reset(flash_attention, flash_attention_bwd)
+        _, aux = stepper.step(state, vq_params, batch, gen, mask_first=mask_first)
+        counts = (flash_attention.launches, flash_attention_bwd.launches)
+        losses.append(float(aux["loss"]))
+        if counts != _launches_per_step(cfg.depth, "full") or not math.isfinite(losses[-1]):
+            fail(f"bidirectional: step mask_first={mask_first}: launches {counts}, loss "
+                 f"{losses[-1]}")
+    if losses[0] == losses[1]:
+        fail("bidirectional: the two steps' losses are equal")
+    print(f"bidirectional: losses at the same params {both[0]:.5f} (mask first) / {both[1]:.5f} "
+          f"(image first); steps {losses[0]:.5f} (mask_first=True) then {losses[1]:.5f} "
+          f"(False), K3/K4 {counts[0]}/{counts[1]} a step")
+    return losses
+
+
+def cond_model_phase(torch, cfg):
+    """ControlVARModel.sample_cond_cfg against StepwiseCondSampler on the
+    same inputs: ControlVAR-d16 multi_cond, AdaLN gates raised, B=16,
+    force="control" with random per-scale control ids, greedy, for
+    repeat_num 4 and 3; every draw's ids and the canvases bit-equal, K1
+    160 and K2 10 a call in each."""
+    import controlvar_tpu_torch.eval.stepwise as stepwise
+    import controlvar_tpu_torch.models.control_var as control_var
+    from controlvar_tpu_torch.config import VQVAEConfig
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.ops.attention import decode_attention
+    from controlvar_tpu_torch.ops.sample_kernel import sample_top_k_top_p_bisect
+
+    B, D, S = 16, cfg.depth, cfg.num_scales
+    model, vqvae = ControlVARModel(cfg), VQVAE(VQVAEConfig())
+    g = torch.Generator().manual_seed(21)
+    labels = torch.randint(0, cfg.num_classes, (B,), generator=g)
+    cond_type = torch.randint(0, 4, (B,), generator=g)
+    forced = [torch.randint(0, cfg.vocab_size, (B, pn * pn), generator=g).cuda()
+              for pn in cfg.patch_nums]
+    vq_params = vqvae.init_params(1)
+    params = None
+    for R in (4, 3):
+        sampler = stepwise.StepwiseCondSampler(model, vqvae, top_k=1, top_p=0.0, repeat_num=R)
+        if params is None:
+            params = sampler.prepare_params(raise_gates(model.init_params(3)))
+        runs = {}
+        for name, fn in (
+                ("sample_cond_cfg", lambda: model.sample_cond_cfg(
+                    params, vqvae, vq_params, labels, cond_type, torch.Generator().manual_seed(5),
+                    c_mask=forced, top_k=1, top_p=0.0, repeat_num=R, decode_img=False)),
+                ("StepwiseCondSampler", lambda: sampler(
+                    params, vq_params, labels, cond_type, torch.Generator().manual_seed(5),
+                    forced, decode_img=False))):
+            _reset(decode_attention, sample_top_k_top_p_bisect)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with recorded_draws(control_var, stepwise) as ids:
+                out = fn()
+            torch.cuda.synchronize()
+            counts = (decode_attention.launches, sample_top_k_top_p_bisect.launches)
+            if counts != (D * S, S):
+                fail(f"{name}, repeat_num {R}: launches (K1, K2) = {counts}")
+            runs[name] = (ids, out, time.perf_counter() - t)
+        (ids_m, out_m, dt_m), (ids_s, out_s, dt_s) = runs.values()
+        if len(ids_m) != S or not all(torch.equal(a, b) for a, b in zip(ids_m, ids_s)):
+            fail(f"sample_cond_cfg, repeat_num {R}: ids differ from StepwiseCondSampler's")
+        if not all(torch.equal(a, b) for a, b in zip(out_m, out_s)):
+            fail(f"sample_cond_cfg, repeat_num {R}: canvases differ from StepwiseCondSampler's")
+        print(f"sample_cond_cfg, repeat_num {R}, B={B}, force control, greedy: ids of all {S} "
+              f"draws and both f_hats bit-equal to StepwiseCondSampler's ({dt_m:.3f} s / "
+              f"{dt_s:.3f} s a call); launches K1={D * S} K2={S} a call")
+
+
+def shared_aln_phase(torch, cfg):
+    """VAR-d16 with shared_aln: StepwiseVARSampler at B=16 (AdaLN gates
+    raised; a warm-up and a timed call, K1 160 and K2 10 a call) and a
+    VARTrainStep at B=8 (a warm-up and a timed step, K3/K4 32/16). Returns
+    (img/s, s/step)."""
+    from controlvar_tpu_torch.config import OptimConfig, VQVAEConfig
+    from controlvar_tpu_torch.eval.stepwise import StepwiseVARSampler
+    from controlvar_tpu_torch.models.var import VARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.ops.attention import decode_attention
+    from controlvar_tpu_torch.ops.sample_kernel import sample_top_k_top_p_bisect
+    from controlvar_tpu_torch.train.train_step import VARTrainStep, init_train_state
+
+    B, D, S = 16, cfg.depth, cfg.num_scales
+    model, vqvae = VARModel(cfg), VQVAE(VQVAEConfig())
+    vq_params = vqvae.init_params(1)
+    sampler = StepwiseVARSampler(model, vqvae, cfg_scale=1.5, top_k=900, top_p=0.96)
+    params = sampler.prepare_params(raise_gates(model.init_params(0)))
+    labels = torch.arange(B) % cfg.num_classes
+    dts = []
+    for seed in (30, 31):
+        _reset(decode_attention, sample_top_k_top_p_bisect)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = sampler(params, vq_params, labels, torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t)
+        counts = (decode_attention.launches, sample_top_k_top_p_bisect.launches)
+        if counts != (D * S, S):
+            fail(f"shared_aln VAR-d16 sampler: launches (K1, K2) = {counts}")
+        if tuple(out.shape) != (B, 256, 256, 3) or not torch.isfinite(out).all():
+            fail(f"shared_aln VAR-d16 sampler: bad images {tuple(out.shape)}")
+    print(f"shared_aln VAR-d16 sampler: warm-up call {dts[0]:.3f} s; timed call {dts[1]:.4f} s "
+          f"for {B} images = {B / dts[1]:.3f} img/s; launches K1={D * S} K2={S}")
+    del params
+    optim = OptimConfig(total_batch_size=8)
+    stepper = VARTrainStep(model, vqvae, optim, max_steps=1000, warmup_steps=10)
+    state = init_train_state(model.init_params(4), optim)
+    batch = _pixel_batch(torch, 8, cfg.num_classes, 17, control=False)
+    gen = torch.Generator().manual_seed(18)
+    s_step, _, _ = _timed_steps(torch, "shared_aln VAR-d16 train",
+                                lambda: stepper.step(state, vq_params, batch, gen)[1],
+                                _launches_per_step(D, "full"), 1, 8)
+    return B / dts[1], s_step
+
+
 # kernel-name substrings of each device-time category, tested in this order:
 # K5 runs K1's kernel body under its own name, matched before K1/K8's
 CATEGORIES = (("K5 prefix decode", ("decode_attention_prefix_kernel",)),
@@ -1716,13 +2122,15 @@ def main() -> None:
     cfg24 = control_var_config_from_depth(24, multi_cond=True)
     # VAR-d16 with configs/train_var_imagenet_d16.yaml's drop path and cond drop
     var16 = var_config_from_depth(16, drop_path_rate=0.1, cond_drop_rate=0.1)
+    # the separator and type_pos options: L = 1378, head vocab 4114
+    sep16 = control_var_config_from_depth(16, multi_cond=True, separator=True, type_pos=True)
     phase("K1 decode attention vs plain")
-    k1 = k1_phase(torch, cfg, cfg24)
+    k1 = k1_phase(torch, cfg, cfg24, sep16)
     torch.cuda.empty_cache()
     phase("K2 bisection sampling vs plain")
     k2 = k2_phase(torch, cfg.vocab_size, cfg.patch_nums)
     phase("K3 flash attention and K4 backward vs plain")
-    k3, k4 = flash_phase(torch, cfg, var16)
+    k3, k4 = flash_phase(torch, cfg, var16, sep16)
     phase("K5 prefix decode and K6 in-place decode vs plain")
     k5, k6 = prefix_phase(torch, cfg24)
     torch.cuda.empty_cache()
@@ -1761,6 +2169,22 @@ def main() -> None:
     v13 = var_path_phase(torch, var13, {"flat": {}}, profile, timed_rounds=False)
     k8["launches"] = v12["kv_fused"][0][3]
     k7["launches"] = v13["flat"][0][2]
+    torch.cuda.empty_cache()
+    phase("separator data path: synthetic data -> Loader -> pretokenize -> token shards -> "
+          "ControlVAR-d16 separator/type_pos from-tokens train step, B=8")
+    shard_rate, sep_s, sep_peak, sep_k34 = separator_data_phase(torch, sep16, profile)
+    torch.cuda.empty_cache()
+    phase("separator joint path: StepwiseJointSampler, ControlVAR-d16 separator/type_pos, B=8")
+    sep_img_s, sep_k12 = separator_joint_phase(torch, sep16)
+    torch.cuda.empty_cache()
+    phase("bidirectional training: ControlVAR-d16 bidirectional, B=8, both stream orders")
+    bi_losses = bidirectional_phase(torch, control_var_config_from_depth(16, bidirectional=True))
+    torch.cuda.empty_cache()
+    phase("sample_cond_cfg vs StepwiseCondSampler: ControlVAR-d16 multi_cond, B=16")
+    cond_model_phase(torch, cfg)
+    torch.cuda.empty_cache()
+    phase("shared_aln: VAR-d16 sampler (B=16) and train step (B=8)")
+    sh_img_s, sh_s = shared_aln_phase(torch, var_config_from_depth(16, shared_aln=True))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1773,7 +2197,11 @@ def main() -> None:
           f"s/step ({8 / var_s:.3f} img/s), {var_peak:.2f} GiB, K3/K4 {var_counts[0]}/"
           f"{var_counts[1]} a step; serving path: "
           f"{img_s:.3f} img/s; joint path: {rates(joint)}; VAR-d12: {rates(v12)}; VAR-d13: "
-          f"{rates(v13)} on")
+          f"{rates(v13)}; separator data path: pretokenize {shard_rate:.3f} samples/s, "
+          f"separator/type_pos from-tokens step {sep_s:.4f} s/step, {sep_peak:.2f} GiB, K3/K4 "
+          f"{sep_k34[0]}/{sep_k34[1]} a step; separator joint: {sep_img_s:.3f} img/s, K1/K2 "
+          f"{sep_k12[0]}/{sep_k12[1]} a call; bidirectional step losses {bi_losses[0]:.5f} / "
+          f"{bi_losses[1]:.5f}; shared_aln VAR-d16: {sh_img_s:.3f} img/s, {sh_s:.4f} s/step on")
     print(smi)
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in (k1, k2, k3, k4, k5, k6, k7, k8)]}))

@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 
 PATCH_NUMS_DEFAULT: Tuple[int, ...] = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
 
+COND_TYPES = ("mask", "canny", "depth", "normal")
+
 # cond-type ids of multi-cond ControlVAR: 0-3 are mask/canny/depth/normal,
 # 4 is the "dropped" (unconditional) entry
 COND_UNCOND_ID = 4

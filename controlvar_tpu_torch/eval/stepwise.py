@@ -75,8 +75,6 @@ class _SamplerBase:
         cfg = self.model.cfg
         if cfg.mask_factor != 2:
             raise ValueError("ControlVAR sampling needs mask_factor=2")
-        if cfg.separator or cfg.type_pos:
-            raise NotImplementedError("separator/type_pos sampling is not ported yet")
         self.device = resolve_device(self.device)
         self._full_mask = None
         if cfg.indep:
@@ -138,10 +136,12 @@ class _SamplerBase:
         if self.cache_mode == "seg":
             sk, sv = _windowed_segs(cache_k, cache_v, self.kv_window)
             x, k_new, v_new = tfm.blocks_decode_seg(params["blocks"], x, cond, cfg, sk, sv,
-                                                    mask_slice=mask_slice)
+                                                    mask_slice=mask_slice,
+                                                    shared_lin=params.get("shared_ada_lin"))
             return x, cache_k + (k_new,), cache_v + (v_new,)
         return tfm.blocks_decode(params["blocks"], x, cond, cfg, cache_k, cache_v, cur,
-                                 mask_slice=mask_slice, inplace=self.inplace_decode)
+                                 mask_slice=mask_slice, inplace=self.inplace_decode,
+                                 shared_lin=params.get("shared_ada_lin"))
 
     def _decode(self, vq_params, fh):
         return (self.vqvae.fhat_to_img(vq_params, fh, self.compute_dtype) + 1.0) * 0.5
@@ -154,7 +154,12 @@ class StepwiseJointSampler(_SamplerBase):
 
     mask_first: the stream order of bidirectional models (the control
     stream first when True). The returned canvases are always (control,
-    image)."""
+    image). A separator model's scales after the first are [control,
+    separator, image, separator]: the separators' embeddings are spliced
+    into the next scale's input and their drawn ids dropped (the logits are
+    cut to vocab_size before the draw). A type_pos model adds its type
+    embeddings to the input of every scale after the first, as the JAX
+    package does."""
 
     model: ControlVARModel
     vqvae: VQVAE
@@ -204,24 +209,33 @@ class StepwiseJointSampler(_SamplerBase):
         logits = tfm.head_logits_cfg(params, x, cond, cfg, (1.0 + t, -t))[:, :, : cfg.vocab_size]
         ids = sample_top_k_top_p(logits, self.top_k, self.top_p, generator)
         l = pn * pn
+        # the image tokens sit at [l + num_sp, 2l + num_sp)
+        num_sp = 1 if (cfg.separator and si > 0) else 0
+        img = slice(l + num_sp, 2 * l + num_sp)
         if self.more_smooth:  # gumbel soft embeddings of both streams
             factor, tau = smooth_temperature(si, SN)
             soft = gumbel_softmax(logits * factor, tau, generator=generator)
             h_all = soft @ vq_params["quantize"]["embedding"].float()
-            h_c, h_i = h_all[:, :l], h_all[:, l:]
+            h_c, h_i = h_all[:, :l], h_all[:, img]
         else:
             h_c = self.quant.embed(vq_params["quantize"], ids[:, :l])
-            h_i = self.quant.embed(vq_params["quantize"], ids[:, l:])
+            h_i = self.quant.embed(vq_params["quantize"], ids[:, img])
         fh_c, nxt_c = self.quant.next_ar_input(vq_params["quantize"], si, fh_c,
                                                h_c.reshape(B, pn, pn, z))
         fh_i, nxt_i = self.quant.next_ar_input(vq_params["quantize"], si, fh_i,
                                                h_i.reshape(B, pn, pn, z))
         if si != SN - 1:
             nl = pns[si + 1] ** 2
-            nm = torch.cat([self.model._word_embed(params, nxt_c.reshape(B, nl, z)),
-                            self.model._word_embed(params, nxt_i.reshape(B, nl, z))], dim=1)
+            parts = [self.model._word_embed(params, nxt_c.reshape(B, nl, z)),
+                     self.model._word_embed(params, nxt_i.reshape(B, nl, z))]
+            if cfg.separator:
+                sp1, sp2 = self.model._separators(params, si, self.mask_first, B)
+                parts = [parts[0], sp1, parts[1], sp2]
             lo, hi = cfg.begin_ends[si + 1]
-            next_map = (nm + self.model._lvl_pos(params)[:, lo:hi]).repeat(2, 1, 1)
+            nm = torch.cat(parts, dim=1) + self.model._lvl_pos(params)[:, lo:hi]
+            if cfg.type_pos:
+                nm = nm + self.model._type_pos(params, self.mask_first)[:, lo:hi]
+            next_map = nm.repeat(2, 1, 1)
         return next_map, cache_k, cache_v, fh_c, fh_i
 
     @torch.no_grad()
@@ -279,6 +293,9 @@ class StepwiseCondSampler(_SamplerBase):
                 or self.decode not in ("both", "image", "control")):
             raise ValueError(f"unsupported repeat_num={self.repeat_num}, "
                              f"force={self.force!r} or decode={self.decode!r}")
+        if self.model.cfg.separator or self.model.cfg.type_pos:
+            raise ValueError("conditional sampling does not take separator/type_pos models "
+                             "(nor does the reference's conditional sampler)")
         self._setup()
 
     # -- pieces ---------------------------------------------------------------

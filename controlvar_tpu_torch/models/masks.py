@@ -30,6 +30,16 @@ def level_index_1L(patch_nums: Tuple[int, ...], mask_factor: int = 1,
 
 
 @functools.lru_cache(maxsize=None)
+def type_index_1L(patch_nums: Tuple[int, ...], separator: bool = False,
+                  mask_first: bool = True) -> np.ndarray:
+    """(L,) int32 control/image type id of every token of a mask_factor 2
+    sequence: (1, 0) a scale when mask_first, (0, 1) otherwise."""
+    a, b = (1, 0) if mask_first else (0, 1)
+    return np.concatenate([np.full(seg, t, np.int32)
+                           for seg in _seg_lens(patch_nums, separator) for t in (a, b)])
+
+
+@functools.lru_cache(maxsize=None)
 def block_causal_mask(patch_nums: Tuple[int, ...], mask_factor: int = 1,
                       separator: bool = False) -> np.ndarray:
     """(L, L) bool: a query of scale i attends keys of scales <= i."""

@@ -29,6 +29,9 @@ Stacked params (leading dim = depth), dense kernels as (in, out):
   qkv_kernel (D, C, 3C)   q_bias/v_bias (D, C)
   proj{kernel (D,C,C), bias (D,C)}   fc1{(D,C,hidden)}  fc2{(D,hidden,C)}
   ada_lin{kernel (D, C, 6C), bias (D, 6C)}   scale_mul (D, H) [cos_attn only]
+With `shared_aln`, ada_gss (D, 6, C) replaces ada_lin: every layer adds its
+own ada_gss to one modulation made by the model-level `shared_ada_lin`
+({kernel (C, 6C), bias (6C,)}), which the callers pass as `shared_lin`.
 """
 from __future__ import annotations
 
@@ -70,8 +73,6 @@ def _trunc_normal(g: torch.Generator, shape, std: float) -> torch.Tensor:
 
 def init_block_params(g: torch.Generator, cfg: VARConfig) -> Params:
     """Reference defaults with the depth-scaled special init."""
-    if cfg.shared_aln:
-        raise NotImplementedError("shared_aln is not ported yet")
     C, D = cfg.embed_dim, cfg.depth
     hidden = round(C * cfg.mlp_ratio)
     std = 0.02
@@ -86,10 +87,16 @@ def init_block_params(g: torch.Generator, cfg: VARConfig) -> Params:
         "fc2": {"kernel": _trunc_normal(g, (D, hidden, C), std) / np.sqrt(2 * D),
                 "bias": torch.zeros(D, C)},
     }
-    w = _trunc_normal(g, (D, C, 6 * C), std)
-    w[:, :, : 2 * C] *= cfg.aln_gamma_init   # gamma columns
-    w[:, :, 2 * C:] *= cfg.aln_init          # scale/shift columns
-    p["ada_lin"] = {"kernel": w, "bias": torch.zeros(D, 6 * C)}
+    if cfg.shared_aln:
+        gss = torch.randn(D, 6, C, generator=g) / np.sqrt(C)
+        gss[:, :2] *= cfg.aln_gamma_init    # gamma rows
+        gss[:, 2:] *= cfg.aln_init          # scale/shift rows
+        p["ada_gss"] = gss
+    else:
+        w = _trunc_normal(g, (D, C, 6 * C), std)
+        w[:, :, : 2 * C] *= cfg.aln_gamma_init   # gamma columns
+        w[:, :, 2 * C:] *= cfg.aln_init          # scale/shift columns
+        p["ada_lin"] = {"kernel": w, "bias": torch.zeros(D, 6 * C)}
     if cfg.cos_attn:
         p["scale_mul"] = torch.full((D, cfg.num_heads), float(np.log(4.0)))
     return p
@@ -132,9 +139,17 @@ def _ffn(lp: Params, x: torch.Tensor) -> torch.Tensor:
     return h @ lp["fc2"]["kernel"].to(x.dtype) + lp["fc2"]["bias"].to(x.dtype)
 
 
-def _ada_all_layers(bp: Params, cond_act: torch.Tensor, cfg: VARConfig) -> torch.Tensor:
-    """(depth, B, 6, C) AdaLN modulations of all layers in one batched matmul,
-    in the kernel's dtype (bf16 after prepare_params), then fp32."""
+def _ada_all_layers(bp: Params, cond: torch.Tensor, cfg: VARConfig,
+                    shared_lin: Optional[Params] = None) -> torch.Tensor:
+    """(depth, B, 6, C) fp32 AdaLN modulations of all layers from the
+    condition cond (B, C): one batched matmul of SiLU(cond), in the kernel's
+    dtype (bf16 after prepare_params), then fp32; with shared_aln, each
+    layer's ada_gss added to the one fp32 modulation that the model-level
+    shared_lin makes."""
+    cond_act = F.silu(cond.float())
+    if cfg.shared_aln:
+        shared = cond_act @ shared_lin["kernel"] + shared_lin["bias"]
+        return bp["ada_gss"][:, None] + shared.reshape(1, -1, 6, cfg.embed_dim)
     k_ada = bp["ada_lin"]["kernel"]
     ada = torch.einsum("bc,dce->dbe", cond_act.to(k_ada.dtype), k_ada).float()
     ada = ada + bp["ada_lin"]["bias"].float()[:, None]
@@ -199,11 +214,11 @@ def _drop_path(generator: torch.Generator, rates, batch: int,
 def _unbind_layers(bp: Params, depth: int):
     """Per-layer views of the stacked block params, made with one unbind per
     leaf, so the backward stacks each leaf's gradient once instead of
-    scattering every layer's into a zeroed full-depth copy. ada_lin is left
-    out: all layers' modulations come from one batched matmul."""
+    scattering every layer's into a zeroed full-depth copy. ada_lin (or
+    ada_gss) is left out: all layers' modulations are made at once."""
     def unbind(tree):
         if isinstance(tree, dict):
-            return {k: unbind(v) for k, v in tree.items() if k != "ada_lin"}
+            return {k: unbind(v) for k, v in tree.items() if k not in ("ada_lin", "ada_gss")}
         return tree.unbind(0)
 
     def pick(tree, li):
@@ -233,12 +248,13 @@ _CKPT = dict(use_reentrant=False, preserve_rng_state=False)  # no draws inside a
 def blocks_forward(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfig,
                    mask: torch.Tensor, *, flags: Optional[torch.Tensor] = None,
                    train: bool = False, generator: Optional[torch.Generator] = None,
-                   remat: str = "full") -> torch.Tensor:
+                   remat: str = "full", shared_lin: Optional[Params] = None) -> torch.Tensor:
     """Full-sequence forward through all blocks, attention through
     `flash_mha` (K3/K4 on the GPU).
 
     x: (B, L, C) residual stream (bf16 on the GPU); cond: (B, C) fp32;
-    mask: (L, L) bool on x's device, flags its `tile_flags`. With train and
+    mask: (L, L) bool on x's device, flags its `tile_flags`; shared_lin:
+    the model's shared_ada_lin under shared_aln. With train and
     a generator, drop path is drawn from the generator. With train, each
     layer is recomputed in the backward under the remat policy (the JAX
     package's `_remat_wrap`; it changes what is saved, never the math):
@@ -250,12 +266,10 @@ def blocks_forward(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConf
                  LSE, saved by `flash_mha` for K4) is kept: the backward
                  never reruns K3.
     """
-    if cfg.shared_aln:
-        raise NotImplementedError("shared_aln is not ported yet")
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat={remat!r}: want one of {'|'.join(REMAT_POLICIES)}")
     D, B = cfg.depth, x.shape[0]
-    ada_all = _ada_all_layers(bp, F.silu(cond.float()), cfg)
+    ada_all = _ada_all_layers(bp, cond, cfg, shared_lin)
     keep = None
     if train and generator is not None and cfg.drop_path_rate > 0:
         rates = np.linspace(0.0, cfg.drop_path_rate, D, dtype=np.float32)
@@ -314,13 +328,15 @@ def init_kv_cache(cfg: VARConfig, batch: int, max_len: int, dtype=torch.bfloat16
 
 def blocks_decode(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfig,
                   cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
-                  mask_slice: Optional[torch.Tensor] = None, inplace: bool = False
+                  mask_slice: Optional[torch.Tensor] = None, inplace: bool = False,
+                  shared_lin: Optional[Params] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One KV-cached decode step over all blocks.
 
     x: (B, l, C) tokens of the current scale; pos: first cache row they take.
     mask_slice: optional (l, pos + l) bool mask; None = attend to everything
-    cached. The caches (`init_kv_cache`) are updated in place and returned.
+    cached. shared_lin: the model's shared_ada_lin under shared_aln. The
+    caches (`init_kv_cache`) are updated in place and returned.
     Each layer writes its fresh rows, then attends over rows [0, pos + l),
     by the caches' layout: the fused buffer (an empty V placeholder) through
     K8, the flat layout (`kv_layout`) through K7 after a transposed write,
@@ -331,7 +347,7 @@ def blocks_decode(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfi
     """
     l = x.shape[1]
     cur = pos + l
-    ada_all = _ada_all_layers(bp, F.silu(cond.float()), cfg)
+    ada_all = _ada_all_layers(bp, cond, cfg, shared_lin)
     scale = 1.0 if cfg.cos_attn else cfg.attn_scale
     fused = cache_v.dim() == 1
     flat = not fused and kv_layout(cfg) == "flat"
@@ -359,7 +375,8 @@ def blocks_decode(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfi
 
 def blocks_decode_seg(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfig,
                       segs_k: Tuple[torch.Tensor, ...], segs_v: Tuple[torch.Tensor, ...],
-                      mask_slice: Optional[torch.Tensor] = None
+                      mask_slice: Optional[torch.Tensor] = None,
+                      shared_lin: Optional[Params] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step over segmented per-scale caches.
 
@@ -367,11 +384,12 @@ def blocks_decode_seg(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARC
     hd); pos = sum of their l_s. Returns (y, k_seg, v_seg), this scale's
     (depth, B, H, l, hd) segments, for the caller to append. Scale 0 (pos
     == 0) attends over its fresh rows with K1; later scales attend over
-    [kept segments | fresh rows] with K5. mask_slice: optional (l, pos + l).
+    [kept segments | fresh rows] with K5. mask_slice: optional (l, pos + l);
+    shared_lin as in `blocks_decode`.
     """
     B, l = x.shape[:2]
     pos = sum(s.shape[3] for s in segs_k)
-    ada_all = _ada_all_layers(bp, F.silu(cond.float()), cfg)
+    ada_all = _ada_all_layers(bp, cond, cfg, shared_lin)
     scale = 1.0 if cfg.cos_attn else cfg.attn_scale
     shape = (cfg.depth, B, cfg.num_heads, l, cfg.head_dim)
     k_seg, v_seg = x.new_empty(shape), x.new_empty(shape)

@@ -7,7 +7,8 @@ JAX package's one-jit `sample_cfg` and its stepwise sampler are the same
 loop.
 
 Params: word_embed{kernel, bias}, class_emb (K+1, C), pos_start, pos_1LC,
-lvl_embed (S, C), blocks{... stacked ...}, head_nm, head.
+lvl_embed (S, C), blocks{... stacked ...}, head_nm, head; with shared_aln
+also shared_ada_lin{kernel (C, 6C), bias (6C,)}.
 """
 from __future__ import annotations
 
@@ -42,8 +43,6 @@ class VARModel:
     def init_params(self, seed: int) -> Params:
         """Reference-default initialized fp32 params from a seed, on self.device."""
         cfg = self.cfg
-        if cfg.shared_aln:
-            raise NotImplementedError("shared_aln is not ported yet")
         g = generator_for(seed)
         C = cfg.embed_dim
         init_std = float(np.sqrt(1.0 / C / 3.0))
@@ -57,6 +56,9 @@ class VARModel:
             "blocks": tfm.init_block_params(g, cfg),
         }
         p.update(tfm.init_head_params(g, cfg, cfg.vocab_size))
+        if cfg.shared_aln:
+            p["shared_ada_lin"] = {"kernel": tfm._trunc_normal(g, (C, 6 * C), 0.02),
+                                   "bias": torch.zeros(6 * C)}
         return tree_to(p, self.device)
 
     def _lvl_pos(self, params: Params) -> torch.Tensor:
@@ -87,8 +89,6 @@ class VARModel:
         attention goes through K3/K4 under the block-causal mask.
         """
         cfg = self.cfg
-        if cfg.shared_aln:
-            raise NotImplementedError("shared_aln is not ported yet")
         if train and generator is not None:
             labels = self._drop_class(labels, generator)
         cond = params["class_emb"][labels]
@@ -98,7 +98,8 @@ class VARModel:
         x = tfm.blocks_forward(params["blocks"], x.to(compute_dtype), cond, cfg,
                                self._attn_mask.to(x.device),
                                flags=self._tile_flags.to(x.device), train=train,
-                               generator=generator, remat=remat)
+                               generator=generator, remat=remat,
+                               shared_lin=params.get("shared_ada_lin"))
         return tfm.head_logits(params, x, cond, cfg)
 
     def sample_cfg(self, params: Params, vqvae, vq_params: Params, labels: torch.Tensor,

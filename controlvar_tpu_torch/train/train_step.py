@@ -10,12 +10,17 @@ steps, these update the parameters and the optimizer state in place.
 `LoRAControlVARTrainStep` trains only LoRA factors over a frozen base;
 `VARTrainStep` tokenizes one image a sample for the class-conditional VAR.
 
-Batch dict contract (tensors on the step's device):
+Batch dict contract (numpy arrays or tensors; the step copies them to its
+device with `data.build.to_device`):
   image  (B, 256, 256, 3) in [-1, 1]
   mask   (B, 256, 256, 3) in [-1, 1]   # the rendered condition image
   cls    (B,) int
   type   (B,) int                       # cond type id, multi_cond only
-  ignore_mask (B, L) float optional     # loss weighting
+  ignore_mask (B, L) float optional     # loss weighting, mask-first order
+  ignore_mask_ (B, L) float optional    # the same, image-first order
+A step with mask_first=False (bidirectional training) weights its loss by
+`ignore_mask_`. With a separator, a mask without separator columns gets
+weight-1 columns spliced in at the separator slots.
 Pre-tokenized batches (`from_tokens=True`) carry `ctrl_ids` and `img_ids`,
 lists of per-scale (B, pn^2) ids, in place of `image` and `mask`.
 """
@@ -28,8 +33,9 @@ import torch
 
 from controlvar_tpu_torch.ckpt.lora import LoRAConfig, apply_lora, init_lora_params
 from controlvar_tpu_torch.config import OptimConfig
-from controlvar_tpu_torch.device import DeviceLike, resolve_device, tree_to
-from controlvar_tpu_torch.models.control_var import ControlVARModel
+from controlvar_tpu_torch.data.build import to_device
+from controlvar_tpu_torch.device import DeviceLike, resolve_device
+from controlvar_tpu_torch.models.control_var import ControlVARModel, separator_mapping
 from controlvar_tpu_torch.models.var import VARModel
 from controlvar_tpu_torch.models.vqvae import VQVAE
 from controlvar_tpu_torch.train.lr_schedule import lr_wd_at_step
@@ -68,31 +74,71 @@ def init_train_state(params: Params, optim: OptimConfig) -> TrainState:
     return TrainState(params, make_optimizer(optim, params))
 
 
-def interleave_tokens(ctrl_ids, img_ids, ctrl_h, img_h, mask_first: bool = True):
+def interleave_tokens(ctrl_ids, img_ids, ctrl_h, img_h, mask_first: bool = True,
+                      separator: bool = False, vocab_size: int = 0):
     """Per-scale interleave of the (control, image) streams.
 
     ctrl_ids/img_ids: lists of (B, pn^2) ids for all S scales; ctrl_h/img_h:
     lists of (B, pn'^2, Cvae) teacher-forcing features, S-1 long. Returns
-    (labels (B, L), x_tf (B, L - first_l, Cvae)), scale by scale [a_k | b_k]
-    with a the control when mask_first."""
+    (labels (B, L), x_tf (B, L_words - first_l, Cvae)), scale by scale
+    [a_k | b_k] with a the control when mask_first. With separator, every
+    segment after scale 0 is followed in the labels by its separator's
+    target, mapping index + vocab_size (`separator_mapping`); x_tf never
+    holds separator slots (forward_train splices the learned embeddings)."""
     a_ids, b_ids = (ctrl_ids, img_ids) if mask_first else (img_ids, ctrl_ids)
     a_h, b_h = (ctrl_h, img_h) if mask_first else (img_h, ctrl_h)
-    labels = torch.cat([t for pair in zip(a_ids, b_ids) for t in pair], dim=1)
+    parts = [t for pair in zip(a_ids, b_ids) for t in pair]
+    if separator:
+        mapping = separator_mapping(mask_first)
+        spliced = parts[:2]
+        for i, part in enumerate(parts[2:]):
+            spliced += [part, torch.full_like(part[:, :1], mapping[i] + vocab_size)]
+        parts = spliced
+    labels = torch.cat(parts, dim=1)
     x_tf = torch.cat([t for pair in zip(a_h, b_h) for t in pair], dim=1)
     return labels, x_tf
 
 
+def splice_separator_ones(ign: torch.Tensor, patch_nums) -> torch.Tensor:
+    """A separator-free ignore mask (B, 2 sum(pn^2)) in the separator
+    layout: a weight-1 column after every segment after scale 0, where
+    `interleave_tokens` puts the separator targets."""
+    one = torch.ones_like(ign[:, :1])
+    out, off = [], 0
+    for si, pn in enumerate(patch_nums):
+        for _ in range(2):
+            out.append(ign[:, off: off + pn * pn])
+            off += pn * pn
+            if si:
+                out.append(one)
+    return torch.cat(out, dim=1)
+
+
 def _aligned_ignore(cfg, ign: Optional[torch.Tensor],
                     target_len: int) -> Optional[torch.Tensor]:
-    """The dataset's ignore mask in the label layout: without separators it
-    must already be (B, L)."""
+    """The dataset's ignore mask in the label layout: with a separator, a
+    separator-free mask gets `splice_separator_ones`; then it must be
+    (B, target_len)."""
     if ign is None:
         return None
-    if cfg.separator:
-        raise NotImplementedError("separator training is not ported yet")
+    if cfg.separator and ign.shape[1] != target_len:
+        ign = splice_separator_ones(ign, cfg.patch_nums)
     if ign.shape[1] != target_len:
         raise ValueError(f"ignore_mask has {ign.shape[1]} columns, the labels {target_len}")
     return ign
+
+
+def _order_ignore(batch: Dict, mask_first: bool) -> Optional[torch.Tensor]:
+    """The batch's ignore mask for the stream order: `ignore_mask` when
+    mask_first, else `ignore_mask_` (the JAX trainer's choice). A batch that
+    carries only the mask-first one (a token shard) cannot weight an
+    image-first step, and raises, as the JAX trainer refuses such a run."""
+    if mask_first:
+        return batch.get("ignore_mask")
+    if "ignore_mask" in batch and "ignore_mask_" not in batch:
+        raise ValueError("an image-first (mask_first=False) step needs the batch's "
+                         "ignore_mask_; this batch carries only the mask-first ignore_mask")
+    return batch.get("ignore_mask_")
 
 
 def _masked_ce(logits: torch.Tensor, labels: torch.Tensor, ignore: Optional[torch.Tensor],
@@ -173,12 +219,14 @@ class ControlVARTrainStep(_TrainStep):
         with torch.no_grad():
             ctrl_h = self.vqvae.ids_to_var_input(vq_params, ctrl_ids)
             img_h = self.vqvae.ids_to_var_input(vq_params, img_ids)
-        labels, x_tf = interleave_tokens(ctrl_ids, img_ids, ctrl_h, img_h, mask_first)
+        cfg = self.model.cfg
+        labels, x_tf = interleave_tokens(ctrl_ids, img_ids, ctrl_h, img_h, mask_first,
+                                         separator=cfg.separator, vocab_size=cfg.vocab_size)
         logits = self.model.forward_train(
             params, batch["cls"], x_tf, cond_type=batch.get("type"),
             mask_first=mask_first, generator=generator, train=True,
             compute_dtype=self.compute_dtype, remat=self.remat)
-        ign = _aligned_ignore(self.model.cfg, batch.get("ignore_mask"), labels.shape[1])
+        ign = _aligned_ignore(cfg, _order_ignore(batch, mask_first), labels.shape[1])
         loss = _masked_ce(logits, labels, ign, loss_denom)
         acc = (logits.argmax(dim=-1) == labels).float().mean()
         return loss, {"loss": loss.detach(), "acc": acc}
@@ -215,7 +263,7 @@ class ControlVARTrainStep(_TrainStep):
         big-batch step's."""
         lr, wd = self._lr_wd(state.step)
         loss_fn = self.loss_fn_tokens if from_tokens else self.loss_fn
-        batch = tree_to(batch, self.device)
+        batch = to_device(batch, self.device)
         state.optimizer.zero_grad(set_to_none=True)
         if accum <= 1:
             loss, aux = loss_fn(state.params, vq_params, batch, generator, mask_first)
@@ -224,7 +272,7 @@ class ControlVARTrainStep(_TrainStep):
             n = batch["cls"].shape[0]
             if n % accum:
                 raise ValueError(f"batch of {n} does not split into {accum} microbatches")
-            ign = _aligned_ignore(self.model.cfg, batch.get("ignore_mask"),
+            ign = _aligned_ignore(self.model.cfg, _order_ignore(batch, mask_first),
                                   self.model.cfg.seq_len)
             denom = None if ign is None else (ign.float().sum() + 1e-6 * ign.numel()) / accum
             aux = {"loss": 0.0, "acc": 0.0}
@@ -270,7 +318,7 @@ class LoRAControlVARTrainStep:
         base = self.base
         lr, wd = base._lr_wd(state.step)
         loss_fn = base.loss_fn_tokens if from_tokens else base.loss_fn
-        batch = tree_to(batch, base.device)
+        batch = to_device(batch, base.device)
         state.optimizer.zero_grad(set_to_none=True)
         params = apply_lora(base_params, state.params, self.lora_cfg)
         loss, aux = loss_fn(params, vq_params, batch, generator, mask_first)
@@ -303,7 +351,7 @@ class VARTrainStep(_TrainStep):
         """One optimizer step, in place on `state`; returns (state, aux) with
         aux = {loss, acc, lr, wd, grad_norm}."""
         lr, wd = self._lr_wd(state.step)
-        batch = tree_to(batch, self.device)
+        batch = to_device(batch, self.device)
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = self.loss_fn(state.params, vq_params, batch, generator)
         loss.backward()

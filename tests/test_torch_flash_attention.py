@@ -149,21 +149,24 @@ def test_wrappers_reject_other_devices():
         flash_attention_bwd(q, q, q, mask, q, torch.zeros(1, 2, 8, device="meta"), q, SCALE)
 
 
-@pytest.mark.parametrize("kind", ["block_causal", "tril", "d16", "indep", "tile_pattern",
-                                  "rows_without_true"])
+@pytest.mark.parametrize("kind", ["block_causal", "tril", "d16", "d16_separator", "indep",
+                                  "tile_pattern", "rows_without_true"])
 def test_tile_flags_match_each_tile(kind):
     """The kernels' per-tile mask flags (1: no False; 2: no True, where
     every row of the tile's 64 query rows has a True somewhere, so that K4
     may skip the tile; else 0) over the part of each 64 x 64 tile inside L,
     against a loop over tiles and rows; L = 42, 300 and 1360 are not
-    multiples of 64. The training masks and the tile pattern attend from
-    every row; the last mask has rows that attend nowhere, whose tiles are
-    never flagged 2."""
+    multiples of 64; the separator layout's L = 1378 puts its scale edges
+    at 2, 12, 32, ... off the 64-row grid and ends on a 34-row tile. The
+    training masks and the tile pattern attend from every row; the last
+    mask has rows that attend nowhere, whose tiles are never flagged 2."""
     from controlvar_tpu_torch.models.masks import block_causal_mask, separate_decoding_mask
 
     pn = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
     if kind == "d16":
         mask = block_causal_mask(pn, 2)
+    elif kind == "d16_separator":
+        mask = block_causal_mask(pn, 2, True)
     elif kind == "indep":
         mask = separate_decoding_mask(pn, indep=True)
     elif kind == "tile_pattern":
@@ -186,6 +189,8 @@ def test_tile_flags_match_each_tile(kind):
     counts = {int(v): int((flags == v).sum()) for v in (0, 1, 2)}
     if kind == "d16":
         assert counts == {0: 35, 1: 286, 2: 163}
+    if kind == "d16_separator":
+        assert L == 1378 and flags.shape == (22, 22) and counts[2] > 0
     if kind == "tile_pattern":  # fully masked tiles before unmasked ones in a row
         assert any(flags[i, j] == 2 and (flags[i, j + 1:] != 2).any()
                    for i in range(nt) for j in range(nt))
@@ -209,7 +214,8 @@ def test_kernel_flags_are_checked_or_computed():
 
 def _skip_mask(kind):
     """The masks the tile-skipping forward is held on: L = 42 (one tile),
-    the d16 training mask and the `indep` one (L = 1360), a random pattern
+    the d16 training mask and the `indep` one (L = 1360), the separator
+    layout's (L = 1378, a 34-row last tile), a random pattern
     of 64 x 64 tiles (L = 300, not a multiple of 64) and a causal mask with
     rows that attend nowhere (L = 320: the JAX kernel pads L to its blocks,
     and a row that attends nowhere spreads its P = 1 over the padded keys
@@ -219,6 +225,8 @@ def _skip_mask(kind):
     pn = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
     if kind == "d16":
         return block_causal_mask(pn, 2)
+    if kind == "d16_separator":
+        return block_causal_mask(pn, 2, True)
     if kind == "indep":
         return separate_decoding_mask(pn, indep=True)
     if kind == "tile_pattern":
@@ -265,7 +273,7 @@ def online_softmax_skipping(q, k, v, mask, scale, tile=64):
     return out, lse
 
 
-@pytest.mark.parametrize("kind", ["block_causal", "d16", "tile_pattern", "indep",
+@pytest.mark.parametrize("kind", ["block_causal", "d16", "d16_separator", "tile_pattern", "indep",
                                   "rows_without_true"])
 def test_forward_skipping_fully_masked_tiles_is_exact(kind):
     """Skipping the tiles flagged 2 changes nothing: fp32, the tile-skipping
@@ -277,7 +285,7 @@ def test_forward_skipping_fully_masked_tiles_is_exact(kind):
     mask = _skip_mask(kind)
     L = mask.shape[0]
     flags = tile_flags(torch.from_numpy(mask))
-    if kind in ("d16", "tile_pattern", "indep"):
+    if kind in ("d16", "d16_separator", "tile_pattern", "indep"):
         assert (flags == 2).any()
     q, k, v = (torch.from_numpy(t) for t in _inputs(5, L)[:3])
     tm = torch.from_numpy(mask)

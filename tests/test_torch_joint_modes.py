@@ -166,7 +166,8 @@ def test_separate_decoding_greedy_matches_jax(vq, monkeypatch, case):
 def test_joint_mode_dispatch_and_guards(vq):
     """sample_joint_cfg of an interleaved (mask_factor 2) model is the joint
     sampler's output; sample_joint_separate keeps the JAX package's
-    asserts."""
+    asserts (a separator model is sampled since the options were ported:
+    tests/test_torch_options.py)."""
     kw = dict(BASE, mask_factor=2, multi_cond=True)
     _, tm, _, tp = _models(kw)
     labels, ct = torch.tensor([1, 6]), torch.tensor([0, 3])
@@ -180,8 +181,7 @@ def test_joint_mode_dispatch_and_guards(vq):
     for bad, err in ((dict(kw), ValueError),                                   # not separate
                      (dict(SEPARATE, indep=True), ValueError),
                      (dict(SEPARATE, multi_cond=False), ValueError),
-                     (dict(SEPARATE, type_pos=True), ValueError),
-                     (dict(SEPARATE, separator=True), NotImplementedError)):
+                     (dict(SEPARATE, type_pos=True), ValueError)):
         m = torch_cv.ControlVARModel(ControlVARConfig(**bad), device="cpu")
         with pytest.raises(err):
             m.sample_joint_separate(tp, vq["tv"], vq["tvp"], labels, ct, torch.Generator())

@@ -1,6 +1,9 @@
 """Rules of the PyTorch port: it imports neither JAX nor the JAX package,
-its entry points default to CUDA and raise without it, and its kernel
-wrappers take their plain versions only for CPU tensors."""
+PIL and cv2 only inside functions of `controlvar_tpu_torch/data/` (the
+card's machine has neither: it runs synthetic batches or token shards),
+its entry points default to CUDA and raise without it, the host-only data
+classes take no device, and its kernel wrappers take their plain versions
+only for CPU tensors."""
 import ast
 import pathlib
 
@@ -27,11 +30,47 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
             f"{path.relative_to(ROOT)} imports {mod}")
 
 
+def _image_imports(path):
+    """(module-level?, module) of every PIL or cv2 import of a file."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = {id(n) for n in tree.body}
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                 [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+        for name in names:
+            if name.split(".")[0] in ("PIL", "cv2"):
+                yield id(node) in top, name
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_pil_and_cv2_only_inside_functions_of_the_data_layer(path):
+    """A module-level PIL or cv2 import anywhere in the port fails on the
+    card's machine at import; one inside a function is allowed in
+    controlvar_tpu_torch/data/ only, where the file-backed datasets decode."""
+    in_data = path.parent == ROOT / "controlvar_tpu_torch" / "data"
+    for module_level, name in _image_imports(path):
+        assert not module_level, f"{path.relative_to(ROOT)} imports {name} at module level"
+        assert in_data, f"{path.relative_to(ROOT)} imports {name} outside data/"
+
+
+def test_pil_rule_sees_the_imports_it_forbids(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text("import PIL.Image\nfrom cv2 import imread\n\n"
+                   "def f():\n    from PIL import Image\n")
+    assert list(_image_imports(bad)) == [(True, "PIL.Image"), (True, "cv2"), (False, "PIL")]
+    data = ROOT / "controlvar_tpu_torch" / "data"
+    assert any(not top for p in data.glob("*.py") for top, _ in _image_imports(p))
+
+
 def test_port_has_sources_and_kernels():
     assert len(PORT_FILES) > 10
     assert sorted(p.name for p in (ROOT / "controlvar_tpu_torch" / "csrc").glob("*.cu")) == [
         "decode_attention.cu", "decode_flat.cu", "decode_prefix.cu", "flash_attention.cu",
         "sample_bisect.cu"]
+    assert (ROOT / "controlvar_tpu_torch" / "native" / "rle_native.c").exists()
+    assert {"build.py", "shards.py", "imagenetc.py", "datasets_extra.py", "rle.py",
+            "colormap.py", "transforms.py"} <= {
+        p.name for p in (ROOT / "controlvar_tpu_torch" / "data").glob("*.py")}
 
 
 @pytest.fixture
@@ -91,6 +130,41 @@ def test_entry_points_raise_without_cuda_and_device(no_cuda):
                               (torch_import.convert_control_var_state_dict, cfg)):
         with pytest.raises(RuntimeError, match="CUDA"):
             convert({}, conv_cfg)
+    # the models of every option: no option raises on the CPU any more
+    opts = ControlVARConfig(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2),
+                            vocab_size=64, multi_cond=True, separator=True, type_pos=True,
+                            shared_aln=True, bidirectional=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ControlVARModel(opts)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VARModel(VARConfig(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2),
+                           vocab_size=64, shared_aln=True))
+    ControlVARModel(opts, device="cpu").init_params(0)
+
+
+def test_host_data_classes_take_no_device(no_cuda, tmp_path):
+    """The loader, the synthetic dataset and the token shards run without
+    CUDA and without a device; pretokenize runs on its VQVAE's device."""
+    import numpy as np
+
+    from controlvar_tpu_torch.config import VQVAEConfig
+    from controlvar_tpu_torch.data.build import Loader, create_dataset, to_device
+    from controlvar_tpu_torch.data.shards import (TokenShardLoader, pretokenize,
+                                                  read_token_shard)
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+
+    ds = create_dataset("synthetic", image_size=32, patch_nums=(1, 2), length=4,
+                        separator=True)
+    batch = next(iter(Loader(ds, batch_size=2, num_workers=1).epoch(0)))
+    assert to_device(batch, "cpu")["image"].device.type == "cpu"
+    vqvae = VQVAE(VQVAEConfig(ch=32, patch_nums=(1, 2), vocab_size=64), device="cpu")
+    n = pretokenize(vqvae, vqvae.init_params(0), Loader(ds, batch_size=2, num_workers=1),
+                    str(tmp_path), compute_dtype=torch.float32)
+    loader = TokenShardLoader(str(tmp_path / "tokens_*.npz"))
+    assert n == loader.steps_per_epoch() == 2
+    shard = next(iter(loader.epoch(0)))
+    assert shard["ctrl_ids"][1].shape == (2, 4) and shard["ignore_mask"].shape == (2, 12)
+    assert np.array_equal(read_token_shard(loader.paths[0])["cls"].shape, (2,))
 
 
 def test_kernel_wrappers_reject_other_devices():
