@@ -119,19 +119,42 @@ Run from the root of a checkout. Phases, each fatal on failure:
      with the spliced ignore mask 1 and the labels separator targets at
      every separator column: one warm-up and three timed steps (K3/K4
      32/16 a step), s/step and peak memory;
- 17. the separator joint path: StepwiseJointSampler on that config (AdaLN
+ 17. the Trainer path: four token shards written again by pretokenize,
+     TokenShardLoader into Trainer(from_tokens=True) on that config,
+     optim.epochs=2 (8 steps): two uninterrupted runs to stop_after=6 (the
+     run-to-run spread of their params; the second timed: s/step, K3/K4
+     32/16 a step), a run stopped at step 3 with its checkpoint and a fresh
+     Trainer that resumes it (init_state, maybe_resume) across the epoch
+     boundary to step 6, whose params equal the uninterrupted run's bit for
+     bit when the spread is 0 (within twice the spread otherwise), each
+     CheckpointIO.save timed; then one more step inside a world-size-1 NCCL
+     process group (one all-reduce of the gradients), bit-equal to the same
+     step without a group, the group destroyed after;
+ 18. tokenizer training: a tiny MaskVQVAETrainStep G + D step (the CPU
+     tests' size) on the card against the CPU, fp32 with TF32 off (ids and
+     codebook hits equal; metrics, gradients and params after Adam within
+     the limits `tokenizer_reference` states); then the ch-160 MaskVQVAE
+     (z 32, 256x256, fp32) with random LPIPS and PatchGAN weights, lr
+     1e-4, the GAN terms gated: one warm-up and three
+     timed G then D steps on one repeated synthetic image/mask batch of 8
+     (s/step, peak memory; every loss finite, usage_pct in (0, 100], the
+     nll falling at every timed step and after the last one: the warm-up
+     step's first Adam update lifts it), the DualGANTrainState through
+     CheckpointIO bit for bit, and one VQVAETrainStep G + D step with
+     every term (disc_start 0);
+ 19. the separator joint path: StepwiseJointSampler on that config (AdaLN
      gates raised) at B=8, stacked cache: a warm-up and a timed call (K1
      160, K2 10), then two greedy calls with equal ids and canvases, every
      id in [0, 4096);
- 18. bidirectional training: ControlVAR-d16 bidirectional (class SOS,
+ 20. bidirectional training: ControlVAR-d16 bidirectional (class SOS,
      mask_factor 2) on a Loader batch: the two orders' losses at the same
      params differ; one pixel step with mask_first=True and one with False,
      both finite (K3/K4 32/16 each);
- 19. ControlVARModel.sample_cond_cfg against StepwiseCondSampler: d16
+ 21. ControlVARModel.sample_cond_cfg against StepwiseCondSampler: d16
      multi_cond, gates raised, B=16, force="control", greedy, repeat_num 4
      and 3: every draw's ids and both f_hats bit-equal (K1 160, K2 10 a
      call);
- 20. shared_aln: VAR-d16 with shared_aln, StepwiseVARSampler at B=16 (gates
+ 22. shared_aln: VAR-d16 with shared_aln, StepwiseVARSampler at B=16 (gates
      raised; K1 160, K2 10 a call) and VARTrainStep at B=8 (K3/K4 32/16).
 Prints the card, a `kernels` JSON line (K1-K8) and, last,
 {"ok": true, "device": ...}.
@@ -145,6 +168,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import glob
 import json
 import os
 import re
@@ -2020,6 +2044,380 @@ CATEGORIES = (("K5 prefix decode", ("decode_attention_prefix_kernel",)),
               ("reduction and norm", ("reduce", "Moments", "norm", "softmax")))
 
 
+def _tree_max_diff(torch, a, b) -> float:
+    """The largest |a - b| over two trees' leaves (same names)."""
+    from controlvar_tpu_torch.train.param_groups import named_leaves
+
+    la, lb = dict(named_leaves(a)), dict(named_leaves(b))
+    if sorted(la) != sorted(lb):
+        fail(f"trees differ in their leaves: {sorted(set(la) ^ set(lb))}")
+    return max(float((la[k].detach().float() - lb[k].detach().float()).abs().max()) for k in la)
+
+
+def _clone_tree(tree):
+    from controlvar_tpu_torch.device import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def trainer_phase(torch, cfg, vq_cfg, B=8, device="cuda"):
+    """The Trainer loop on a from-tokens ControlVAR (the card: d16 multi_cond
+    separator/type_pos, B=8): four shards written by pretokenize from
+    synthetic Loader batches, TokenShardLoader, optim.epochs=2 (8 steps).
+    Two uninterrupted runs to stop_after=6 (their params compared for the
+    run-to-run spread; the second timed, K3/K4 counted), a run stopped at
+    step 3 (mid-epoch 0) with its checkpoint, and a fresh Trainer that
+    resumes it to step 6 across the epoch boundary: its params must equal
+    the uninterrupted run's bit for bit when the two uninterrupted runs are
+    bit-equal, else lie within twice their spread. Every CheckpointIO.save
+    is timed. Then one more step inside a world-size-1 process group (NCCL;
+    gloo on the CPU), through the gradient average's one all-reduce,
+    bit-equal to the same step without a group. Returns (s/step, save
+    seconds, spread, (K3, K4) a step)."""
+    import copy as copy_module
+    import math
+    import socket
+
+    import torch.distributed as dist
+
+    from controlvar_tpu_torch.ckpt import orbax_io
+    from controlvar_tpu_torch.config import OptimConfig
+    from controlvar_tpu_torch.data.build import Loader
+    from controlvar_tpu_torch.data.imagenetc import SyntheticControlDataset
+    from controlvar_tpu_torch.data.shards import TokenShardLoader, pretokenize, read_token_shard
+    from controlvar_tpu_torch.device import generator_for
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+    from controlvar_tpu_torch.parallel import distributed
+    from controlvar_tpu_torch.train.param_groups import named_leaves
+    from controlvar_tpu_torch.train.train_step import init_train_state
+    from controlvar_tpu_torch.train.trainer import Trainer
+
+    vqvae = VQVAE(vq_cfg, device=device)
+    vq_params = vqvae.init_params(1)
+    ds = SyntheticControlDataset(image_size=cfg.patch_nums[-1] * 16, num_classes=cfg.num_classes,
+                                 patch_nums=cfg.patch_nums, separator=cfg.separator,
+                                 length=B * 4)
+    params0 = ControlVARModel(cfg, device=device).init_params(0)
+    saves, real_save = [], orbax_io.CheckpointIO.save
+
+    def timed_save(self, step, state, metadata=None):
+        _sync(torch, device)
+        t = time.perf_counter()
+        real_save(self, step, state, metadata)
+        saves.append(time.perf_counter() - t)
+
+    with _scratch_dir() as d:
+        pretokenize(vqvae, vq_params, Loader(ds, batch_size=B, seed=0, num_workers=4),
+                    os.path.join(d, "shards"), compute_dtype=(
+                        torch.bfloat16 if device == "cuda" else torch.float32))
+        pattern = os.path.join(d, "shards", "tokens_*.npz")
+        extra_batch = read_token_shard(sorted(glob.glob(pattern))[0])
+
+        def trainer(stop_after, ckpt=None, logs=None):
+            return Trainer(cfg, vq_cfg, OptimConfig(total_batch_size=B, epochs=2),
+                           TokenShardLoader(pattern), vq_params, from_tokens=True,
+                           stop_after=stop_after, log_every=1,
+                           ckpt_dir=None if ckpt is None else os.path.join(d, ckpt),
+                           log_fn=logs.append if logs is not None else (lambda m: None),
+                           device=device)
+
+        orbax_io.CheckpointIO.save = timed_save
+        try:
+            tr = trainer(6)
+            u1_params = _clone_tree(tr.fit(tr.init_state(base_params=_clone_tree(params0))).params)
+            _reset(flash_attention, flash_attention_bwd)
+            logs = []
+            tr = trainer(6, logs=logs)
+            state0 = tr.init_state(base_params=_clone_tree(params0))
+            _sync(torch, device)
+            t = time.perf_counter()
+            u2 = tr.fit(state0)
+            _sync(torch, device)
+            s_step = (time.perf_counter() - t) / 6
+            counts = (flash_attention.launches, flash_attention_bwd.launches)
+            spread = _tree_max_diff(torch, u2.params, u1_params)
+            del u1_params, state0
+            first = trainer(3, "ckpt")
+            first.fit(first.init_state(base_params=_clone_tree(params0)))
+            del first
+            resumed_logs = []
+            second = trainer(6, "ckpt", resumed_logs)
+            state, epoch = second.maybe_resume(
+                second.init_state(base_params=_clone_tree(params0)))
+            if (state.step, epoch) != (3, 0):  # the epoch recorded at the mid-epoch stop
+                fail(f"trainer: resumed at step {state.step}, epoch {epoch}")
+            resumed = second.fit(state, epoch)
+        finally:
+            orbax_io.CheckpointIO.save = real_save
+    del params0
+    order = [(m["step"], m["epoch"]) for m in resumed_logs]
+    if order != [(3, 0), (4, 1), (5, 1)] or resumed.step != 6:
+        fail(f"trainer: the resumed run took steps {order}, ended at {resumed.step}")
+    if not all(math.isfinite(m["loss"]) for m in logs + resumed_logs):
+        fail("trainer: a non-finite loss")
+    diff = _tree_max_diff(torch, resumed.params, u2.params)
+    print(f"trainer: two uninterrupted runs of 6 steps differ by {spread:.3e} (largest |param "
+          f"difference|); the run stopped at step 3 and resumed by a fresh Trainer across the "
+          f"epoch boundary to step 6 differs from the uninterrupted one by {diff:.3e}")
+    if diff > 2 * spread:
+        fail(f"trainer: the resumed params differ by {diff:.3e} > twice the spread {spread:.3e}")
+    if torch.device(device).type == "cuda" and counts != (6 * 2 * cfg.depth, 6 * cfg.depth):
+        fail(f"trainer: 6 steps launched (K3, K4) = {counts}")
+    n_params = sum(p.numel() for _, p in named_leaves(u2.params))
+    print(f"trainer: {s_step:.4f} s/step over the 6 steps of an uninterrupted Trainer.fit "
+          f"(B={B}, from tokens; logged sec_per_step "
+          + ", ".join(f"{m['sec_per_step']:.4f}" for m in logs)
+          + f"), K3/K4 {counts[0]}/{counts[1]}; CheckpointIO.save of the state ({n_params / 1e6:.1f} "
+          f"M params with their AdamW moments): " + ", ".join(f"{s:.3f}" for s in saves) + " s")
+    del resumed, second, state
+
+    # one more step, without a group and inside a world-size-1 group
+    copy = init_train_state(_clone_tree(u2.params), tr.optim)
+    # a deep copy: load_state_dict keeps the state's step tensors, which
+    # AdamW increments in place
+    copy.optimizer.load_state_dict(copy_module.deepcopy(u2.optimizer.state_dict()))
+    copy.step = u2.step
+    tr.stepper.step(copy, tr.vq_params, extra_batch, generator_for(6), from_tokens=True)
+    reduces, real_all_reduce = [], dist.all_reduce
+
+    def counted(t, *args, **kwargs):
+        reduces.append(t.numel())
+        return real_all_reduce(t, *args, **kwargs)
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    distributed.initialize(f"localhost:{port}", 1, 0, device=device)
+    dist.all_reduce = counted
+    try:
+        tr.stepper.step(u2, tr.vq_params, extra_batch, generator_for(6), from_tokens=True)
+    finally:
+        dist.all_reduce = real_all_reduce
+        distributed.shutdown()
+    if reduces != [n_params] or dist.is_initialized():
+        fail(f"trainer: the group step all-reduced {reduces}, not one buffer of {n_params}")
+    group_diff = _tree_max_diff(torch, copy.params, u2.params)
+    print(f"trainer: a step inside a world-size-1 "
+          f"{'NCCL' if torch.device(device).type == 'cuda' else 'gloo'} group (one all-reduce "
+          f"of the {n_params} gradients) differs from the same step without a group by "
+          f"{group_diff:.3e}")
+    if group_diff != 0.0:
+        fail("trainer: the world-size-1 group step is not bit-equal to the step without one")
+    return s_step, saves, spread, (counts[0] // 6, counts[1] // 6)
+
+
+def _gan_batch(torch, B, image_size, seed, device):
+    """B seeded image/mask pairs in [-1, 1] from SyntheticControlDataset
+    through the Loader, on `device`."""
+    from controlvar_tpu_torch.data.build import Loader, to_device
+    from controlvar_tpu_torch.data.imagenetc import SyntheticControlDataset
+
+    ds = SyntheticControlDataset(image_size=image_size, num_classes=10, length=B)
+    batch = next(iter(Loader(ds, batch_size=B, seed=seed, num_workers=4).epoch(0)))
+    return to_device(batch["image"], device), to_device(batch["mask"], device)
+
+
+def tokenizer_phase(torch, vq_cfg, B=8, device="cuda"):
+    """Tokenizer training at full width (the card: the ch-160 VQVAE, z 32,
+    256x256, fp32 as the JAX package trains it, random LPIPS and
+    discriminator weights, train-vqvae's lr 1e-4): MaskVQVAETrainStep G
+    then D steps on one repeated synthetic image/mask batch, one warm-up
+    and three timed (s/step, peak memory): every loss finite, usage_pct in
+    (0, 100], the nll falling at every timed step and after the last one
+    (the warm-up step's first Adam update lifts it). The GAN terms are
+    gated (disc_start past the steps, as the JAX package's own
+    nll-decrease test runs; the D steps run their gated loss): with
+    disc_start 0 the adaptive-weighted GAN term of a random discriminator
+    makes the nll of these first steps oscillate (0.6160, 0.8141, 0.7291,
+    0.6333 before the four steps of one run, H100 80GB HBM3 at 700 W). Then the
+    DualGANTrainState through CheckpointIO into a fresh state, bit for bit,
+    and one VQVAETrainStep G + D step with disc_start 0 (every term, d_loss
+    > 0). Returns (s/step, peak GiB, the nll before each step and after the
+    last)."""
+    import math
+
+    from controlvar_tpu_torch.ckpt.orbax_io import CheckpointIO
+    from controlvar_tpu_torch.losses.vqperceptual import VQLPIPSWithDiscriminator
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.models.vqvae_mask import MaskVQVAE
+    from controlvar_tpu_torch.train.param_groups import named_leaves
+    from controlvar_tpu_torch.train.train_vqvae import MaskVQVAETrainStep, VQVAETrainStep
+
+    images, masks = _gan_batch(torch, B, vq_cfg.patch_nums[-1] * 16, 3, device)
+    loss = VQLPIPSWithDiscriminator(disc_start=1000)
+    step = MaskVQVAETrainStep(MaskVQVAE(vq_cfg, device=device), loss, lr=1e-4)
+    state, lpips_params = step.init_state(0)
+    n_vq = sum(p.numel() for _, p in named_leaves(state.vq_params))
+    n_disc = sum(p.numel() for _, p in named_leaves(state.disc_params))
+    nlls, times = [], []
+
+    def one():
+        nonlocal state
+        _sync(torch, device)
+        t = time.perf_counter()
+        state, gm, (ri, rm) = step.g_step(state, lpips_params, images, masks)
+        state, dm = step.d_step(state, images, masks, ri, rm)
+        _sync(torch, device)
+        times.append(time.perf_counter() - t)
+        metrics = {k: float(v) for k, v in {**gm, **dm}.items()}
+        if not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"tokenizer: a non-finite metric: {metrics}")
+        if not 0.0 < metrics["usage_pct"] <= 100.0 or not 0.0 < metrics["mask_usage_pct"] <= 100:
+            fail(f"tokenizer: usage_pct {metrics['usage_pct']}, mask_usage_pct "
+                 f"{metrics['mask_usage_pct']}")
+        nlls.append(metrics["nll"])
+        return metrics
+
+    m = one()
+    print(f"tokenizer: MaskVQVAE {n_vq / 1e6:.2f} M params, discriminator {n_disc / 1e6:.2f} M; "
+          f"warm-up G+D step {times[0]:.3f} s: " + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        m = one()
+    s_step = sum(times[1:]) / 3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if device == "cuda" else 0.0
+    print(f"tokenizer: MaskVQVAETrainStep G+D at B={B}: timed steps "
+          + ", ".join(f"{t:.4f}" for t in times[1:]) + f" s, mean {s_step:.4f} s/step; peak "
+          f"memory {peak:.2f} GiB; nll " + ", ".join(f"{x:.6f}" for x in nlls)
+          + f"; last step: d_loss {m['d_loss']:.5f}, d_weight {m['d_weight']:.5f}, usage "
+          f"{m['usage_pct']:.2f}% / mask {m['mask_usage_pct']:.2f}%")
+    with torch.no_grad():
+        ri, rm, _, mvq, vq = step.vqvae.forward_train_joint(state.vq_params, images, masks)
+        nlls.append(float(loss.generator_loss_dual(lpips_params, state.disc_params, images,
+                                                   masks, ri, rm, vq, mvq, state.step)[1]["nll"]))
+    print(f"tokenizer: nll after the last step {nlls[-1]:.6f}")
+    # the warm-up step's Adam update is about lr * sign(g) on every one of the
+    # 109 M params, which lifts the nll; it must fall from there on
+    if not all(a > b for a, b in zip(nlls[1:], nlls[2:])):
+        fail(f"tokenizer: the nll did not fall over the timed steps: {nlls}")
+
+    with _scratch_dir() as d:
+        io = CheckpointIO(d)
+        _sync(torch, device)
+        t = time.perf_counter()
+        io.save(state.step, state, metadata={"epoch": 0})
+        t_save = time.perf_counter() - t
+        fresh, _ = step.init_state(1)
+        restored, meta = io.restore(fresh)
+    for field in ("vq_params", "disc_params", "usage", "mask_usage"):
+        if _tree_max_diff(torch, getattr(restored, field), getattr(state, field)) != 0.0:
+            fail(f"tokenizer: checkpoint round trip changed {field}")
+    for opt in ("vq_opt", "disc_opt"):
+        a, b = getattr(restored, opt).state_dict()["state"], getattr(state, opt).state_dict()[
+            "state"]
+        if a.keys() != b.keys() or not all(torch.equal(a[i][k], b[i][k]) for i in a
+                                           for k in ("exp_avg", "exp_avg_sq", "step")):
+            fail(f"tokenizer: checkpoint round trip changed {opt}")
+    if restored.step != state.step or meta != {"epoch": 0}:
+        fail(f"tokenizer: restored step {restored.step}, metadata {meta}")
+    print(f"tokenizer: DualGANTrainState saved ({t_save:.3f} s) and restored into a fresh state "
+          f"bit for bit (both trees, both Adam states, step {restored.step}, both usage EMAs)")
+    del state, restored, fresh
+
+    single = VQVAETrainStep(VQVAE(vq_cfg, device=device),
+                            VQLPIPSWithDiscriminator(disc_start=0), lr=1e-4)
+    state, lpips_params = single.init_state(2)
+    state, gm = single.g_step(state, lpips_params, images)
+    state, dm = single.d_step(state, images)
+    metrics = {k: float(v) for k, v in {**gm, **dm}.items()}
+    if (not all(math.isfinite(v) for v in metrics.values()) or state.step != 1
+            or not metrics["d_loss"] > 0.0):
+        fail(f"tokenizer: VQVAETrainStep G+D: {metrics}, step {state.step}")
+    print("tokenizer: VQVAETrainStep G+D step: " + ", ".join(
+        f"{k} {v:.5g}" for k, v in metrics.items()))
+    return s_step, peak, nlls
+
+
+def tokenizer_reference(torch, devices=("cpu", "cuda")):
+    """A tiny MaskVQVAETrainStep G + D step (ch 32, patch_nums (1, 2, 4),
+    V 64, B=2 at 64x64, the CPU tests' size) on the card against the CPU,
+    fp32 with TF32 off on both: the image ids, both codebooks' hit counts
+    equal; the metrics within 1e-4 relative (the adaptive weight within
+    2e-3: ~1e-4 reconstruction differences move a few discriminator
+    pre-activations across LeakyReLU's kink); each gradient leaf within a
+    relative L2 error of 2e-3 plus 1e-6 of the tree's largest gradient; the
+    params after Adam within lr 1e-2 where the gradient is clear of that
+    noise, within Adam's own bound 2 lr elsewhere. The G step's GAN term is
+    gated (disc_start past the step), the D step ungated on the CPU's
+    reconstructions."""
+    import math
+
+    from controlvar_tpu_torch.config import VQVAEConfig
+    from controlvar_tpu_torch.device import no_tf32
+    from controlvar_tpu_torch.losses.vqperceptual import VQLPIPSWithDiscriminator
+    from controlvar_tpu_torch.models.vqvae_mask import MaskVQVAE
+    from controlvar_tpu_torch.train.param_groups import named_leaves
+    from controlvar_tpu_torch.train.train_vqvae import MaskVQVAETrainStep
+
+    lr, vq_cfg = 1e-4, VQVAEConfig(ch=32, patch_nums=(1, 2, 4), vocab_size=64)
+    g = torch.Generator().manual_seed(4)
+    img, msk = (torch.rand(2, 64, 64, 3, generator=g) * 2 - 1 for _ in range(2))
+    out = {}
+    for i, device in enumerate(devices):
+        vq = MaskVQVAE(vq_cfg, device=device)
+        g_step = MaskVQVAETrainStep(vq, VQLPIPSWithDiscriminator(disc_start=1000), lr=lr)
+        d_step = MaskVQVAETrainStep(vq, VQLPIPSWithDiscriminator(disc_start=0), lr=lr)
+        with no_tf32():
+            state, lp = g_step.init_state(0)
+            ids = vq.img_to_ids(state.vq_params, img.to(device))
+            state, gm, (ri, rm) = g_step.g_step(state, lp, img, msk)
+            grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).double().cpu()
+                     for n, p in named_leaves(state.vq_params)}
+            recon = out[0]["recon"] if i else (ri, rm)
+            state, dm = d_step.d_step(state, img, msk, *(t.to(device) for t in recon))
+            grads.update({f"disc/{n}": p.grad.double().cpu()
+                          for n, p in named_leaves(state.disc_params)})
+        out[i] = dict(
+            ids=[t.cpu() for t in ids], recon=(ri.cpu(), rm.cpu()), grads=grads,
+            metrics={k: float(v) for k, v in {**gm, **dm}.items()},
+            hits=(state.usage["ema_hits"].cpu(), state.mask_usage["ema_hits"].cpu()),
+            params={**{n: p.detach().double().cpu() for n, p in named_leaves(state.vq_params)},
+                    **{f"disc/{n}": p.detach().double().cpu()
+                       for n, p in named_leaves(state.disc_params)}})
+    c, k = out[0], out[1]
+    if not all(torch.equal(a, b) for a, b in zip(c["ids"], k["ids"])):
+        fail("tokenizer reference: the card's image ids differ from the CPU's")
+    if not all(torch.equal(a, b) for a, b in zip(c["hits"], k["hits"])):
+        fail("tokenizer reference: the card's codebook hit counts differ from the CPU's")
+    worst_metric = 0.0
+    for name, want in c["metrics"].items():
+        rel = abs(k["metrics"][name] - want) / max(abs(want), 1e-6)
+        worst_metric = max(worst_metric, rel if name != "d_weight" else 0.0)
+        if rel > (2e-3 if name == "d_weight" else 1e-4):
+            fail(f"tokenizer reference: {name} {k['metrics'][name]} vs the CPU's {want}")
+    worst_l2, worst_param = 0.0, 0.0
+    for tree in ("vq", "disc"):
+        names = [n for n in c["grads"] if n.startswith("disc/") == (tree == "disc")]
+        floor = 1e-6 * max(float(c["grads"][n].abs().max()) for n in names)
+        for n in names:
+            want, got = c["grads"][n], k["grads"][n]
+            err = (got - want).abs()
+            l2, l2_want = float(err.norm()), float(want.norm())
+            if l2 > 2e-3 * l2_want + floor * math.sqrt(err.numel()):
+                fail(f"tokenizer reference: gradient of {n}: L2 error {l2:.3e} of {l2_want:.3e}")
+            if l2_want > floor * math.sqrt(err.numel()):
+                worst_l2 = max(worst_l2, l2 / l2_want)
+            diff = (k["params"][n] - c["params"][n]).abs()
+            clear = want.abs() > max(1e-2 * float(want.abs().max()), 1e2 * floor)
+            if bool((diff[clear] > lr * 1e-2).any()) or float(diff.max()) > 2 * lr * (1 + 1e-5):
+                fail(f"tokenizer reference: param {n} after Adam differs by {float(diff.max()):.3e}")
+            if bool(clear.any()):
+                worst_param = max(worst_param, float(diff[clear].max()))
+    print(f"tokenizer reference: tiny MaskVQVAE G+D step, fp32 without TF32, card vs CPU: ids "
+          f"and hit counts equal; largest metric relative difference {worst_metric:.3e} "
+          f"(d_weight {abs(k['metrics']['d_weight'] - c['metrics']['d_weight']) / c['metrics']['d_weight']:.3e}); "
+          f"largest gradient relative L2 error {worst_l2:.3e}; largest param difference where "
+          f"the gradient is clear of the noise {worst_param:.3e} (lr {lr:g})")
+
+
 def category(kernel_name: str) -> str:
     """The device-time category of a kernel (CATEGORIES), else "other"."""
     return next((c for c, keys in CATEGORIES if any(k in kernel_name for k in keys)), "other")
@@ -2091,7 +2489,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     sys.path.insert(0, ROOT)
-    from controlvar_tpu_torch.config import control_var_config_from_depth, var_config_from_depth
+    from controlvar_tpu_torch.config import (VQVAEConfig, control_var_config_from_depth,
+                                             var_config_from_depth)
     from controlvar_tpu_torch.ops import _build
 
     phase("environment")
@@ -2174,6 +2573,15 @@ def main() -> None:
           "ControlVAR-d16 separator/type_pos from-tokens train step, B=8")
     shard_rate, sep_s, sep_peak, sep_k34 = separator_data_phase(torch, sep16, profile)
     torch.cuda.empty_cache()
+    phase("Trainer path: ControlVAR-d16 separator/type_pos from token shards, B=8, stop_after, "
+          "resume, a world-size-1 NCCL step")
+    tr_s, tr_saves, tr_spread, tr_k34 = trainer_phase(torch, sep16, VQVAEConfig())
+    torch.cuda.empty_cache()
+    phase("tokenizer training path: MaskVQVAE ch-160 256x256 B=8 fp32 G/D steps, LPIPS, "
+          "PatchGAN; a tiny step against the CPU")
+    tokenizer_reference(torch)
+    tok_s, tok_peak, tok_nll = tokenizer_phase(torch, VQVAEConfig())
+    torch.cuda.empty_cache()
     phase("separator joint path: StepwiseJointSampler, ControlVAR-d16 separator/type_pos, B=8")
     sep_img_s, sep_k12 = separator_joint_phase(torch, sep16)
     torch.cuda.empty_cache()
@@ -2199,7 +2607,12 @@ def main() -> None:
           f"{img_s:.3f} img/s; joint path: {rates(joint)}; VAR-d12: {rates(v12)}; VAR-d13: "
           f"{rates(v13)}; separator data path: pretokenize {shard_rate:.3f} samples/s, "
           f"separator/type_pos from-tokens step {sep_s:.4f} s/step, {sep_peak:.2f} GiB, K3/K4 "
-          f"{sep_k34[0]}/{sep_k34[1]} a step; separator joint: {sep_img_s:.3f} img/s, K1/K2 "
+          f"{sep_k34[0]}/{sep_k34[1]} a step; Trainer path: {tr_s:.4f} s/step, K3/K4 "
+          f"{tr_k34[0]}/{tr_k34[1]} a step, run-to-run spread {tr_spread:.3e}, CheckpointIO.save "
+          f"{', '.join(f'{x:.3f}' for x in tr_saves)} s; tokenizer training: {tok_s:.4f} s/step "
+          f"(G+D), {tok_peak:.2f} GiB, nll {tok_nll[0]:.6f}, after the warm-up "
+          f"{tok_nll[1]:.6f}, after the last step {tok_nll[-1]:.6f}; "
+          f"separator joint: {sep_img_s:.3f} img/s, K1/K2 "
           f"{sep_k12[0]}/{sep_k12[1]} a call; bidirectional step losses {bi_losses[0]:.5f} / "
           f"{bi_losses[1]:.5f}; shared_aln VAR-d16: {sh_img_s:.3f} img/s, {sh_s:.4f} s/step on")
     print(smi)

@@ -1,10 +1,13 @@
 """Checkpoints of the port's train state: save, resume and latest step.
 
 The port of `controlvar_tpu/ckpt/orbax_io.py`, with the same class and
-method names, on `torch.save`/`torch.load` in place of Orbax. The port's
-`TrainState` holds its parameters, a `torch.optim.AdamW` and the step
-count, so a checkpoint holds {params, optimizer.state_dict(), step} and
-the caller's JSON metadata (the trainer's epoch, say).
+method names, on `torch.save`/`torch.load` in place of Orbax. A state is
+a dataclass whose fields are tensor trees, `torch.optim` optimizers and
+ints: the port's `TrainState` ({params, optimizer, step}) and the tokenizer
+trainer's `GANTrainState` and `DualGANTrainState` (two param trees, two
+Adam optimizers, the step and the codebook-usage trees). A checkpoint holds
+every field (trees on the CPU, None nodes kept; optimizers as their
+state_dict) and the caller's JSON metadata (the trainer's epoch, say).
 
 One file a step, `<directory>/<step>.pt`. It is written under a temporary
 name and renamed once whole, so `latest_step` never reports a step whose
@@ -14,6 +17,7 @@ asynchronous saves.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -27,18 +31,26 @@ from controlvar_tpu_torch.train.param_groups import named_leaves
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 
 
-def _load_params(dst, src) -> None:
-    """Copy a saved param tree into `dst`'s tensors, on their devices."""
+def _load_params(dst, src, field: str = "params") -> None:
+    """Copy a saved tensor tree into `dst`'s tensors, on their devices."""
     want, got = dict(named_leaves(dst)), dict(named_leaves(src))
     if sorted(want) != sorted(got):
-        raise ValueError(f"checkpoint params {sorted(got)} do not match the state's "
+        raise ValueError(f"checkpoint {field} {sorted(got)} do not match the state's "
                          f"{sorted(want)}")
     with torch.no_grad():
         for name, leaf in want.items():
             if leaf.shape != got[name].shape:
-                raise ValueError(f"checkpoint param {name}: shape {tuple(got[name].shape)}, "
-                                 f"the state's {tuple(leaf.shape)}")
+                raise ValueError(f"checkpoint {field} {name}: shape "
+                                 f"{tuple(got[name].shape)}, the state's {tuple(leaf.shape)}")
             leaf.copy_(got[name])
+
+
+def _pack(value):
+    if isinstance(value, torch.optim.Optimizer):
+        return value.state_dict()
+    if isinstance(value, (int, float)):
+        return value
+    return tree_map(lambda t: t.detach().cpu(), value)
 
 
 class CheckpointIO:
@@ -59,12 +71,11 @@ class CheckpointIO:
         return sorted(int(m.group(1)) for m in found if m)
 
     def save(self, step: int, state: Any, metadata: Optional[Dict] = None) -> None:
-        """Write `state` (a TrainState) as `step`, then drop the oldest steps
-        beyond max_to_keep. metadata must be JSON-serialisable."""
-        payload = {"params": tree_map(lambda t: t.detach().cpu(), state.params),
-                   "optimizer": state.optimizer.state_dict(),
-                   "step": int(state.step),
-                   "metadata": None if metadata is None else json.dumps(metadata)}
+        """Write `state` (every field of its dataclass) as `step`, then drop
+        the oldest steps beyond max_to_keep. metadata must be
+        JSON-serialisable."""
+        payload = {f.name: _pack(getattr(state, f.name)) for f in dataclasses.fields(state)}
+        payload["metadata"] = None if metadata is None else json.dumps(metadata)
         path = self._path(step)
         tmp = path + ".tmp"
         torch.save(payload, tmp)
@@ -85,27 +96,32 @@ class CheckpointIO:
         return ck, meta
 
     def restore(self, state_like: Any, step: Optional[int] = None):
-        """Load `step` (the latest when None) into `state_like`: its param
-        tensors and its optimizer, on their devices (the optimizer's
-        load_state_dict moves each moment to its param's device), and its
-        step count. Returns (state_like, metadata), or (None, None) when
+        """Load `step` (the latest when None) into `state_like`, field by
+        field: its tensor trees in place, on their devices; its optimizers
+        by load_state_dict (which moves each moment to its param's device);
+        its step count. Returns (state_like, metadata), or (None, None) when
         there is no checkpoint."""
         ck, meta = self._load(step)
         if ck is None:
             return None, None
-        _load_params(state_like.params, ck["params"])
-        state_like.optimizer.load_state_dict(ck["optimizer"])
-        state_like.step = ck["step"]
+        for f in dataclasses.fields(state_like):
+            value = getattr(state_like, f.name)
+            if isinstance(value, torch.optim.Optimizer):
+                value.load_state_dict(ck[f.name])
+            elif isinstance(value, (int, float)):
+                setattr(state_like, f.name, ck[f.name])
+            else:
+                _load_params(value, ck[f.name], f.name)
         return state_like, meta
 
     def restore_raw(self, step: Optional[int] = None):
-        """Template-free restore: ({params, optimizer, step} as numpy arrays
-        and Python values, metadata), for export and inspection tools that
-        do not build a TrainState."""
+        """Template-free restore: ({field: value} of the saved state, as
+        numpy arrays and Python values, metadata), for export and inspection
+        tools that do not build a state."""
         ck, meta = self._load(step)
         if ck is None:
             return None, None
-        raw = {k: ck[k] for k in ("params", "optimizer", "step")}
+        raw = {k: v for k, v in ck.items() if k != "metadata"}
         return tree_map(lambda v: v.numpy() if isinstance(v, torch.Tensor) else v, raw), meta
 
     def wait(self) -> None:

@@ -12,7 +12,6 @@ Conventions (mirroring the importer):
 Every entry is a contiguous fp32 CPU tensor with storage of its own. Only
 parameters are exported; the reference's derived buffers (lvl_1L,
 attn_bias_for_masking, zero_k_bias, ...) are rebuilt by its constructors.
-`export_mask_vqvae_state_dict` waits for the port's MaskVQVAE.
 """
 from __future__ import annotations
 
@@ -96,6 +95,24 @@ def export_vqvae_state_dict(params: Dict, cfg: VQVAEConfig,
     out["quantize.embedding.weight"] = _t(params["quantize"]["embedding"])
     for i, phi in enumerate(params["quantize"]["phi"]):
         _conv(out, f"quantize.quant_resi.qresi_ls.{i}", phi)
+    return out
+
+
+def export_mask_vqvae_state_dict(params: Dict, cfg: VQVAEConfig, usage: Dict = None,
+                                 mask_usage: Dict = None) -> StateDict:
+    """The port's dual-codebook MaskVQVAE params -> reference
+    models/vqvae_mask.py names: the single-codebook layout plus the mask
+    codebook (`mask_quantize.*`, its usage EMA from `mask_usage` or zeros)
+    and the shared `filter` conv."""
+    out = export_vqvae_state_dict(params, cfg, usage=usage)
+    _conv(out, "filter", params["filter"])
+    mq = params["mask_quantize"]
+    out["mask_quantize.embedding.weight"] = _t(mq["embedding"])
+    for i, phi in enumerate(mq["phi"]):
+        _conv(out, f"mask_quantize.quant_resi.qresi_ls.{i}", phi)
+    out["mask_quantize.ema_vocab_hit_SV"] = (
+        _t(torch.as_tensor(mask_usage["ema_hits"])) if mask_usage is not None
+        else torch.zeros(len(cfg.patch_nums), cfg.vocab_size))
     return out
 
 

@@ -207,3 +207,15 @@ class SampleConfig:
     more_smooth: bool = False
     # opt-in scale-aware KV window (lossy; segmented cache mode)
     kv_window: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Logical device-mesh shape. data = DP axis; model = TP axis."""
+
+    data: int = 1
+    model: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model

@@ -79,12 +79,15 @@ def render_instance_mask(
     if colormap is None:
         colormap = grid_color_map()
     if use_native and len(anns):
-        from controlvar_tpu_torch import native
+        try:
+            from controlvar_tpu_torch import native
 
-        if native.available():
-            out = native.render_mask(anns, image_size, colormap, min_area)
-            if out is not None:
-                return out.astype(np.float64)
+            if native.available():
+                out = native.render_mask(anns, image_size, colormap, min_area)
+                if out is not None:
+                    return out.astype(np.float64)
+        except Exception:
+            pass  # a malformed RLE or a library that fails to load: the numpy path
     mask = np.zeros((image_size, image_size, 3), dtype=np.float64)
     for ann in anns:
         if ann.get("area", np.inf) < min_area:

@@ -35,7 +35,10 @@ def generator_for(seed: int) -> torch.Generator:
 
 def tree_map(fn, tree):
     """A new tree of the same dicts and lists (tuples become lists) with fn
-    applied to every other node."""
+    applied to every other node but None, which stays None (the
+    discriminator's layers without BatchNorm)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -45,7 +48,9 @@ def tree_map(fn, tree):
 
 def tree_to(tree, device: torch.device, dtype=None):
     """Move every tensor of a nested dict/list parameter tree to `device`
-    (and, for floating tensors, to `dtype` when given)."""
+    (and, for floating tensors, to `dtype` when given); None stays None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_to(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, list):

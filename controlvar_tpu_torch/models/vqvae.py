@@ -1,12 +1,14 @@
 """Multi-scale VQVAE tokenizer: encoder + quant_conv + residual VQ +
-post_quant_conv + decoder. Images and f_hat are NHWC.
+post_quant_conv + decoder. Images and f_hat are NHWC. Frozen in
+VAR/ControlVAR training; trained end to end through `forward_train`
+(`train/train_vqvae.py`).
 
 Params: {"encoder": ..., "decoder": ..., "quant_conv": {kernel, bias},
          "post_quant_conv": {kernel, bias}, "quantize": {embedding, phi}}
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,16 +31,17 @@ class VQVAE:
 
     def init_params(self, seed: int) -> Params:
         """torch-default initialized params from a seed, on self.device."""
-        g = generator_for(seed)
+        return tree_to(self._init_host(generator_for(seed)), self.device)
+
+    def _init_host(self, g: torch.Generator) -> Params:
         ks, z = self.cfg.quant_conv_ks, self.cfg.z_channels
-        params = {
+        return {
             "encoder": vae_mod.init_encoder_params(g, self.cfg),
             "decoder": vae_mod.init_decoder_params(g, self.cfg),
             "quantize": self.quantizer.init_params(g),
             "quant_conv": vae_mod._init_conv(g, ks, ks, z, z),
             "post_quant_conv": vae_mod._init_conv(g, ks, ks, z, z),
         }
-        return tree_to(params, self.device)
 
     def encode_f(self, params: Params, img: torch.Tensor,
                  compute_dtype=torch.float32) -> torch.Tensor:
@@ -74,3 +77,34 @@ class VQVAE:
                     compute_dtype=torch.float32) -> torch.Tensor:
         """f_hat (B, h, w, Cvae) -> image (B, 16h, 16w, 3) clamped to [-1, 1]."""
         return self.decode_raw(params, f_hat, compute_dtype).clamp(-1.0, 1.0)
+
+    def ids_to_img(self, params: Params, ms_ids: Sequence[torch.Tensor],
+                   compute_dtype=torch.float32) -> torch.Tensor:
+        """Decode per-scale ids to a final image in [-1, 1]
+        (reference: vqvae.py:97-104)."""
+        f_hat = self.quantizer.ids_to_fhat(params["quantize"], ms_ids)
+        return self.fhat_to_img(params, f_hat, compute_dtype)
+
+    def img_to_recon(self, params: Params, img: torch.Tensor,
+                     compute_dtype=torch.float32) -> torch.Tensor:
+        """Encode -> quantize -> decode, unclamped (reference:
+        vqvae.py:80-86, last_one=True)."""
+        f = self.encode_f(params, img, compute_dtype)
+        fhats = self.quantizer.encode_fhat(params["quantize"], f)
+        return self.decode_raw(params, fhats[-1], compute_dtype)
+
+    def img_to_ms_recon(self, params: Params, img: torch.Tensor,
+                        compute_dtype=torch.float32) -> List[torch.Tensor]:
+        """Per-scale cumulative reconstructions, unclamped (reference:
+        infer_vae.py:97-121)."""
+        f = self.encode_f(params, img, compute_dtype)
+        fhats = self.quantizer.encode_fhat(params["quantize"], f)
+        return [self.decode_raw(params, fh, compute_dtype) for fh in fhats]
+
+    def forward_train(self, params: Params, img: torch.Tensor, compute_dtype=torch.float32
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(recon, vq_loss, per-scale codebook hit counts (S, V)), with the
+        straight-through quantizer (reference: models/vqvae.py:56-59)."""
+        f = self.encode_f(params, img, compute_dtype)
+        f_hat, vq_loss, usage = self.quantizer.quantize_train(params["quantize"], f)
+        return self.decode_raw(params, f_hat, compute_dtype), vq_loss, usage

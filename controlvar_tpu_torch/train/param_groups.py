@@ -23,9 +23,12 @@ def _join(prefix: str, key) -> str:
 
 
 def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
-    """("a/b/c", tensor) for every leaf of a nested dict/list tree, in order."""
+    """("a/b/c", tensor) for every leaf of a nested dict/list tree, in order;
+    a None node (a discriminator layer without BatchNorm) has no leaves."""
     items = tree.items() if isinstance(tree, dict) else enumerate(tree)
     for k, v in items:
+        if v is None:
+            continue
         if isinstance(v, (dict, list)):
             yield from named_leaves(v, _join(prefix, k))
         else:
@@ -39,6 +42,8 @@ def _decays(name: str, leaf: torch.Tensor) -> bool:
 
 
 def _mask(tree, prefix: str):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _mask(v, _join(prefix, k)) for k, v in tree.items()}
     if isinstance(tree, list):

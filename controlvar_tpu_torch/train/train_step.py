@@ -9,6 +9,10 @@ clips, and AdamW with the lr/wd of the step. Unlike the JAX package's pure
 steps, these update the parameters and the optimizer state in place.
 `LoRAControlVARTrainStep` trains only LoRA factors over a frozen base;
 `VARTrainStep` tokenizes one image a sample for the class-conditional VAR.
+Inside a `torch.distributed` process group every step averages its
+gradients over the ranks before the clip (`parallel.distributed`), and the
+ControlVAR and LoRA steps normalize the loss by the global batch's
+ignore-mask weight.
 
 Batch dict contract (numpy arrays or tensors; the step copies them to its
 device with `data.build.to_device`):
@@ -38,6 +42,8 @@ from controlvar_tpu_torch.device import DeviceLike, resolve_device
 from controlvar_tpu_torch.models.control_var import ControlVARModel, separator_mapping
 from controlvar_tpu_torch.models.var import VARModel
 from controlvar_tpu_torch.models.vqvae import VQVAE
+from controlvar_tpu_torch.parallel.distributed import (all_reduce_sum, average_gradients,
+                                                       process_count)
 from controlvar_tpu_torch.train.lr_schedule import lr_wd_at_step
 from controlvar_tpu_torch.train.param_groups import decay_groups, named_leaves
 
@@ -167,10 +173,14 @@ def _microbatch(batch: Dict, i: int, size: int) -> Dict:
 
 
 def _clip_and_update(state: TrainState, grad_clip: float, lr: float, wd: float):
-    """Clip the gradients of state's params by their global norm as optax
-    clips, then take the optimizer step at (lr, wd), wd on the first (the
-    decayed) group only. Returns the norm before clipping."""
-    grads = [leaf.grad for _, leaf in named_leaves(state.params) if leaf.grad is not None]
+    """Average the gradients of state's params over the ranks of a process
+    group (`parallel.distributed.average_gradients`; nothing without one),
+    clip them by their global norm as optax clips, then take the optimizer
+    step at (lr, wd), wd on the first (the decayed) group only. Returns the
+    norm before clipping."""
+    leaves = [leaf for _, leaf in named_leaves(state.params)]
+    average_gradients(leaves)
+    grads = [leaf.grad for leaf in leaves if leaf.grad is not None]
     grad_norm = torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
     # optax's clip_by_global_norm: g * max_norm / norm when norm >= max_norm
@@ -250,38 +260,55 @@ class ControlVARTrainStep(_TrainStep):
         return self._loss_from_ids(params, vq_params, batch["ctrl_ids"], batch["img_ids"],
                                    batch, generator, mask_first, loss_denom)
 
+    def _backward(self, params, vq_params, batch, generator=None, mask_first: bool = True,
+                 from_tokens: bool = False, accum: int = 1) -> Dict:
+        """The gradient of the loss, accumulated into the `.grad` of params'
+        leaves (which the caller zeroes); returns aux = {loss, acc}.
+
+        accum > 1 splits the batch into `accum` microbatches whose gradients
+        are summed: each microbatch loss is normalized by the whole batch's
+        ignore-mask weight divided by accum, so the update equals the single
+        big-batch step's. Inside a process group of W ranks, each holding
+        its rows of the global batch, that weight is all-reduced over the
+        ranks and divided by accum * W, so that the mean of the ranks'
+        gradients (`average_gradients`, in the update) is the global batch's
+        and not a mean of per-rank means; aux is averaged over the ranks."""
+        loss_fn = self.loss_fn_tokens if from_tokens else self.loss_fn
+        world = process_count()
+        if accum <= 1 and world == 1:
+            loss, aux = loss_fn(params, vq_params, batch, generator, mask_first)
+            loss.backward()
+            return aux
+        n = batch["cls"].shape[0]
+        if n % accum:
+            raise ValueError(f"batch of {n} does not split into {accum} microbatches")
+        ign = _aligned_ignore(self.model.cfg, _order_ignore(batch, mask_first),
+                              self.model.cfg.seq_len)
+        denom = None if ign is None else all_reduce_sum(
+            ign.float().sum() + 1e-6 * ign.numel()) / (accum * world)
+        aux = {"loss": 0.0, "acc": 0.0}
+        for i in range(accum):
+            loss_i, aux_i = loss_fn(params, vq_params, _microbatch(batch, i, n // accum),
+                                    generator, mask_first, loss_denom=denom)
+            (loss_i / accum).backward()
+            aux = {k: aux[k] + aux_i[k] / accum for k in aux}
+        if world > 1:
+            both = all_reduce_sum(torch.stack([aux["loss"], aux["acc"]]).detach()) / world
+            aux = {"loss": both[0], "acc": both[1]}
+        return aux
+
     def step(self, state: TrainState, vq_params, batch, generator=None,
              mask_first: bool = True, from_tokens: bool = False,
              accum: int = 1) -> Tuple[TrainState, Dict]:
         """One optimizer step, in place on `state`; returns (state, aux) with
         aux = {loss, acc, lr, wd, grad_norm}, grad_norm the global norm
-        before clipping.
-
-        accum > 1 splits the batch into `accum` microbatches whose gradients
-        are summed: each microbatch loss is normalized by the whole batch's
-        ignore-mask weight divided by accum, so the update equals the single
-        big-batch step's."""
+        before clipping. `_backward` says how accum and a process group split
+        the batch."""
         lr, wd = self._lr_wd(state.step)
-        loss_fn = self.loss_fn_tokens if from_tokens else self.loss_fn
         batch = to_device(batch, self.device)
         state.optimizer.zero_grad(set_to_none=True)
-        if accum <= 1:
-            loss, aux = loss_fn(state.params, vq_params, batch, generator, mask_first)
-            loss.backward()
-        else:
-            n = batch["cls"].shape[0]
-            if n % accum:
-                raise ValueError(f"batch of {n} does not split into {accum} microbatches")
-            ign = _aligned_ignore(self.model.cfg, _order_ignore(batch, mask_first),
-                                  self.model.cfg.seq_len)
-            denom = None if ign is None else (ign.float().sum() + 1e-6 * ign.numel()) / accum
-            aux = {"loss": 0.0, "acc": 0.0}
-            for i in range(accum):
-                loss_i, aux_i = loss_fn(state.params, vq_params,
-                                        _microbatch(batch, i, n // accum), generator,
-                                        mask_first, loss_denom=denom)
-                (loss_i / accum).backward()
-                aux = {k: aux[k] + aux_i[k] / accum for k in aux}
+        aux = self._backward(state.params, vq_params, batch, generator, mask_first,
+                            from_tokens, accum)
         grad_norm = _clip_and_update(state, self.optim.grad_clip, lr, wd)
         return state, dict(aux, lr=lr, wd=wd, grad_norm=grad_norm)
 
@@ -317,12 +344,10 @@ class LoRAControlVARTrainStep:
         as it was and gets no gradient."""
         base = self.base
         lr, wd = base._lr_wd(state.step)
-        loss_fn = base.loss_fn_tokens if from_tokens else base.loss_fn
         batch = to_device(batch, base.device)
         state.optimizer.zero_grad(set_to_none=True)
         params = apply_lora(base_params, state.params, self.lora_cfg)
-        loss, aux = loss_fn(params, vq_params, batch, generator, mask_first)
-        loss.backward()
+        aux = base._backward(params, vq_params, batch, generator, mask_first, from_tokens)
         grad_norm = _clip_and_update(state, base.optim.grad_clip, lr, wd)
         return state, dict(aux, lr=lr, wd=wd, grad_norm=grad_norm)
 

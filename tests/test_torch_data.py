@@ -115,6 +115,27 @@ def test_colormaps_and_rendering_match_jax(rng):
                                   colormap.render_instance_mask(anns, 512, use_native=False))
 
 
+def test_render_falls_back_to_numpy_on_a_malformed_rle(monkeypatch):
+    """More counts than h * w + 2: the native parser returns -2 and raises;
+    both packages then take the numpy path and return the same mask. So do
+    they when the native library fails to load."""
+    anns = [{"segmentation": {"size": [16, 16], "counts": "0" * 300}, "area": 1e9}]
+    with pytest.raises(ValueError, match="rc=-2"):
+        native.render_mask(anns, 16, colormap.grid_color_map(), 0)
+    got = colormap.render_instance_mask(anns, 16, min_area=0)
+    want = jcolormap.render_instance_mask(anns, 16, min_area=0)
+    assert got.shape == (16, 16, 3) and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+    def broken(*args, **kwargs):
+        raise OSError("cannot load the native library")
+
+    monkeypatch.setattr(native, "available", broken)
+    good = [{"segmentation": jrle.encode_rle(np.eye(16, dtype=np.uint8)), "area": 1e9}]
+    np.testing.assert_array_equal(colormap.render_instance_mask(good, 16, min_area=0),
+                                  jcolormap.render_instance_mask(good, 16, min_area=0))
+
+
 @pytest.mark.parametrize("separator", [False, True])
 def test_token_ignore_masks_match_jax(rng, separator):
     cond = rng.random((64, 64, 3)).astype(np.float32) * 2 - 1

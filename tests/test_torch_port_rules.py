@@ -232,3 +232,57 @@ def test_profile_categories_tell_the_kernels_apart(symbol, category):
     """chip_smoke's device-time categories: K5 runs K1's kernel body under a
     name of its own, which must not fall into K1/K8's category."""
     assert _chip_smoke().category(symbol) == category
+
+
+def test_training_slice_modules_exist_and_stay_free_of_wandb_and_pil_at_import():
+    """The trainer and tokenizer-training slice is in the port under the JAX
+    package's names; the Tracker imports wandb only inside a function (the
+    card's machine has none), and no module of the slice imports PIL: PNGs
+    are written with the standard library's zlib."""
+    pkg = ROOT / "controlvar_tpu_torch"
+    names = ["utils/misc.py", "utils/tracker.py", "parallel/distributed.py", "parallel/mesh.py",
+             "train/trainer.py", "train/train_vqvae.py", "models/vqvae_mask.py",
+             "losses/lpips.py", "losses/discriminator.py", "losses/vqperceptual.py",
+             "losses/segmentation.py"]
+    for name in names:
+        assert (pkg / name).exists(), name
+        assert (ROOT / "controlvar_tpu" / name).exists(), name
+        assert not list(_image_imports(pkg / name)), name
+    tree = ast.parse((pkg / "utils" / "tracker.py").read_text())
+    top = {id(n) for n in tree.body}
+    wandb = [n for n in ast.walk(tree) if isinstance(n, ast.Import)
+             and any(a.name.split(".")[0] == "wandb" for a in n.names)]
+    assert wandb and not any(id(n) in top for n in wandb)
+    from controlvar_tpu_torch.config import MeshConfig  # noqa: F401
+
+
+def test_training_slice_entry_points_raise_without_cuda_and_device(no_cuda, tmp_path,
+                                                                   monkeypatch):
+    from controlvar_tpu_torch.config import ControlVARConfig, OptimConfig, VQVAEConfig
+    from controlvar_tpu_torch.data.shards import TokenShardLoader, write_token_shard
+    from controlvar_tpu_torch.losses.lpips import convert_lpips_state_dict
+    from controlvar_tpu_torch.models.vqvae_mask import MaskVQVAE
+    from controlvar_tpu_torch.parallel import distributed
+    from controlvar_tpu_torch.train.trainer import Trainer
+
+    import numpy as np
+
+    cfg = ControlVARConfig(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2),
+                           vocab_size=64, multi_cond=True)
+    vq_cfg = VQVAEConfig(ch=32, patch_nums=(1, 2), vocab_size=64)
+    ids = [np.zeros((2, 1), np.int64), np.zeros((2, 4), np.int64)]
+    write_token_shard(str(tmp_path / "tokens_00000.npz"), ids, ids, np.zeros(2), np.zeros(2))
+    loader = TokenShardLoader(str(tmp_path / "tokens_*.npz"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, vq_cfg, OptimConfig(), loader, {}, from_tokens=True)
+    assert Trainer(cfg, vq_cfg, OptimConfig(), loader, {}, from_tokens=True,
+                   device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MaskVQVAE(vq_cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert_lpips_state_dict({})
+    monkeypatch.setenv("COORDINATOR_ADDRESS", "localhost:1")
+    monkeypatch.setenv("NUM_PROCESSES", "1")
+    monkeypatch.setenv("PROCESS_ID", "0")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.initialize()
