@@ -155,7 +155,23 @@ Run from the root of a checkout. Phases, each fatal on failure:
      and 3: every draw's ids and both f_hats bit-equal (K1 160, K2 10 a
      call);
  22. shared_aln: VAR-d16 with shared_aln, StepwiseVARSampler at B=16 (gates
-     raised; K1 160, K2 10 a call) and VARTrainStep at B=8 (K3/K4 32/16).
+     raised; K1 160, K2 10 a call) and VARTrainStep at B=8 (K3/K4 32/16);
+ 23. the command line, `controlvar_tpu_torch.cli.main.main` called in this
+     process on .pth files of a d16 multi_cond model (gates raised) and the
+     ch-160 VQVAE written under .chip_scratch/, every count set to 0 just
+     before each call and read just after: eval-cond --force control over
+     two synthetic B=16 batches (K1 320, K2 20; its 32 PNGs, decoded here
+     with zlib, bit-equal to _to_uint8 of direct
+     SamplingHarness.control_conditioned calls on the same batches with
+     generator_for(seed + bi); img/s of the CLI's loop and of the bare
+     calls, and the PNG encode's share of the loop), eval-cond --force
+     image (K1 160), sample joint (K1 160, K2 10), --kv_window 2 (K1 16,
+     K5 144) and --sampler sort (K2 0), fid over two classes of 16 as one
+     shard and as two (the same files, bit for bit), train --steps 3 (K3/K4
+     96/48) -> export --ckpt_dir (the re-imported .pth equal to the
+     checkpoint's params bit for bit), train-var --steps 2, train-vqvae
+     --dual --steps 2 (B=8), and pretokenize (the synthetic split cut to 32
+     samples, four shards) -> train --token_shards --steps 2.
 Prints the card, a `kernels` JSON line (K1-K8) and, last,
 {"ok": true, "device": ...}.
 It exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -2418,6 +2434,251 @@ def tokenizer_reference(torch, devices=("cpu", "cuda")):
           f"the gradient is clear of the noise {worst_param:.3e} (lr {lr:g})")
 
 
+def read_png(path):
+    """The (H, W, 3) uint8 pixels of an 8-bit RGB PNG as `write_png` writes
+    it (one IDAT stream, every scanline with filter type 0)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path}: not a PNG")
+    pos, idat, w, h = 8, b"", None, None
+    while pos < len(data):
+        n, tag = struct.unpack(">I", data[pos: pos + 4])[0], data[pos + 4: pos + 8]
+        body = data[pos + 8: pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+            if body[8:10] != b"\x08\x02":
+                fail(f"{path}: not 8-bit RGB")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if (rows[:, 0] != 0).any():
+        fail(f"{path}: a scanline filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+KERNEL_NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+
+
+def _kernel_wrappers():
+    from controlvar_tpu_torch.ops import attention as a
+    from controlvar_tpu_torch.ops.sample_kernel import sample_top_k_top_p_bisect
+
+    return (a.decode_attention, sample_top_k_top_p_bisect, a.flash_attention,
+            a.flash_attention_bwd, a.decode_attention_prefix, a.decode_attention_inplace,
+            a.decode_attention_flat, a.decode_attention_fused)
+
+
+def cli_phase(torch, cfg, seed: int = 7):
+    """The port's command line in this process (the kernels are built):
+    d16 and ch-160 .pth files, then eval-cond (both forces), sample (joint,
+    kv_window 2, sort), fid (one shard and two), train -> export, train-var,
+    train-vqvae --dual, pretokenize -> train --token_shards. Returns
+    ({run: launches of K1-K8}, the eval-cond loop's img/s, the bare harness
+    calls' img/s, the PNG writes' share of the loop)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from controlvar_tpu_torch.ckpt.orbax_io import CheckpointIO
+    from controlvar_tpu_torch.ckpt.torch_export import (export_control_var_state_dict,
+                                                        export_vqvae_state_dict,
+                                                        save_torch_checkpoint)
+    from controlvar_tpu_torch.ckpt.torch_import import (convert_control_var_state_dict,
+                                                        convert_vqvae_state_dict,
+                                                        load_torch_state_dict)
+    from controlvar_tpu_torch.cli import main as cli
+    from controlvar_tpu_torch.config import SampleConfig, VQVAEConfig
+    from controlvar_tpu_torch.data import imagenetc
+    from controlvar_tpu_torch.data.build import Loader, create_dataset, to_device
+    from controlvar_tpu_torch.device import generator_for
+    from controlvar_tpu_torch.eval import serving
+    from controlvar_tpu_torch.eval.harness import SamplingHarness, _to_uint8
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.train.param_groups import named_leaves
+    from controlvar_tpu_torch.utils import tracker
+
+    scratch = os.path.join(ROOT, ".chip_scratch")  # listed in .gitignore
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+    at = lambda *p: os.path.join(scratch, *p)
+    vq_cfg = VQVAEConfig()
+    t0 = time.time()
+    params = raise_gates(ControlVARModel(cfg).init_params(0))
+    save_torch_checkpoint(at("d16.pth"), export_control_var_state_dict(params, cfg))
+    save_torch_checkpoint(at("vae.pth"), export_vqvae_state_dict(VQVAE(vq_cfg).init_params(1),
+                                                                 vq_cfg))
+    del params
+    print(f"cli: d16 (gates raised) and ch-160 VQVAE .pth written in {time.time() - t0:.1f} s")
+    ckpts = ["--ckpt", at("d16.pth"), "--vae_ckpt", at("vae.pth"), "--seed", str(seed)]
+    wrappers = _kernel_wrappers()
+    png_s, loop_s = [0.0], [0.0]
+    orig_png, orig_map = tracker.write_png, serving.pipelined_map
+
+    def timed_png(path, rgb):
+        t = time.perf_counter()
+        orig_png(path, rgb)
+        png_s[0] += time.perf_counter() - t
+
+    def timed_map(fn, items, depth=2):
+        t = time.perf_counter()
+        yield from orig_map(fn, items, depth)
+        loop_s[0] += time.perf_counter() - t
+
+    counts = {}
+
+    def run(label, argv, expect=None):
+        """cli.main(argv) with every count set to 0 just before it and read
+        just after; expect: {kernel name: launches}."""
+        _reset(*wrappers)
+        png_s[0] = loop_s[0] = 0.0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        got = dict(zip(KERNEL_NAMES, (w.launches for w in wrappers)))
+        counts[label] = {k: v for k, v in got.items() if v}
+        print(f"cli {label}: {dt:.2f} s, launches {counts[label]}", flush=True)
+        for k, n in (expect or {}).items():
+            if got[k] != n:
+                fail(f"cli {label}: {k} launched {got[k]} times, expected {n}")
+        return dt
+
+    tracker.write_png, serving.pipelined_map = timed_png, timed_map
+    try:
+        # eval-cond --force control: two d16 B=16 batches, K1 16 x 10 a batch
+        out = at("val")
+        run("eval-cond control", ["eval-cond", *ckpts, "--data", "synthetic", "--batch_size",
+                                  "16", "--max_batches", "2", "--out", out],
+            {"K1": 320, "K2": 20, "K5": 0, "K6": 0})
+        cli_loop, cli_png = loop_s[0], png_s[0]
+        pngs = sorted(glob.glob(os.path.join(out, "cfg_6_6_6_depth", "0", "*.png")))
+        if len(pngs) != 32:
+            fail(f"cli eval-cond: {len(pngs)} PNGs, expected 32")
+        # the same batches through the bare harness, as the CLI built it
+        cv = ControlVARModel(cfg)
+        vqvae = VQVAE(vq_cfg)
+        h = SamplingHarness(cv, vqvae, SampleConfig(cfg=(6.0, 6.0, 6.0), seed=seed),
+                            decode_generated_only=True)
+        p = h.prepare_params(convert_control_var_state_dict(load_torch_state_dict(
+            at("d16.pth")), cfg))
+        vq = convert_vqvae_state_dict(load_torch_state_dict(at("vae.pth")), vq_cfg)
+        ds = create_dataset("synthetic", num_classes=cfg.num_classes, patch_nums=cfg.patch_nums,
+                            image_size=256)
+        bare, t_load = 0.0, time.perf_counter()
+        batches = []
+        for bi, batch in enumerate(Loader(ds, batch_size=16, shuffle=False,
+                                          drop_last=False).epoch(0)):
+            if bi == 2:
+                break
+            batches.append(batch)
+        t_load = time.perf_counter() - t_load
+        for bi, batch in enumerate(batches):
+            labels = to_device(batch["cls"].astype(np.int64), "cuda")
+            ct = to_device(batch["type"].astype(np.int64), "cuda")
+            mask = to_device(batch["mask"], "cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, img = h.control_conditioned(p, vq, labels, ct, generator_for(seed + bi), mask)
+            torch.cuda.synchronize()
+            bare += time.perf_counter() - t
+            want = _to_uint8(img)
+            for b in range(16):
+                got = read_png(os.path.join(out, "cfg_6_6_6_depth", "0", f"{bi * 16 + b}.png"))
+                if not np.array_equal(got, want[b]):
+                    fail(f"cli eval-cond: {bi * 16 + b}.png differs from the harness call "
+                         f"(max |d| {np.abs(got.astype(int) - want[b]).max()})")
+        del p, vq, h
+        cli_img_s, bare_img_s = 32 / cli_loop, 32 / bare
+        print(f"cli eval-cond: 32 PNGs bit-equal to _to_uint8 of direct harness calls; CLI "
+              f"loop {cli_loop:.3f} s = {cli_img_s:.3f} img/s, bare harness calls "
+              f"{bare:.3f} s = {bare_img_s:.3f} img/s; the CLI adds "
+              f"{(cli_loop - bare) / cli_loop:.3f} of its loop; PNG encode {cli_png:.3f} s = "
+              f"{cli_png / cli_loop:.3f} of the loop ({cli_png / 32 * 1e3:.2f} ms an image); "
+              f"loading two batches alone {t_load:.3f} s")
+        run("eval-cond image", ["eval-cond", *ckpts, "--data", "synthetic", "--batch_size",
+                                "16", "--max_batches", "1", "--force", "image",
+                                "--out", at("val_img")], {"K1": 160, "K2": 10})
+        if len(glob.glob(at("val_img", "cfg_6_6_6_depth", "0", "*.png"))) != 16:
+            fail("cli eval-cond --force image: expected 16 PNGs")
+        for label, extra, expect in (
+                ("sample joint", [], {"K1": 160, "K2": 10}),
+                ("sample kv_window=2", ["--kv_window", "2"], {"K1": 16, "K5": 144, "K2": 10}),
+                ("sample sort", ["--sampler", "sort"], {"K1": 160, "K2": 0})):
+            d = at("sample_" + label.split()[1])
+            run(label, ["sample", *ckpts, "--batch_size", "16", "--out", d, *extra], expect)
+            files = sorted(glob.glob(os.path.join(d, "*.png")))
+            if len(files) != 16 or read_png(files[0]).shape != (512, 256, 3):
+                fail(f"cli {label}: expected 16 PNGs of 512 x 256 (control above image)")
+        fid = ["fid", *ckpts, "--gen_classes", "2", "--images_per_class", "16",
+               "--batch_size", "16"]
+        run("fid one shard", [*fid, "--out", at("fid1")], {"K1": 320, "K2": 20})
+        for shard in range(2):
+            run(f"fid shard {shard} of 2", [*fid, "--out", at("fid2"), "--shard_id", str(shard),
+                                            "--num_shards", "2"], {"K1": 160, "K2": 10})
+        one = sorted(os.path.relpath(f, at("fid1")) for f in glob.glob(at("fid1", "*", "*.png")))
+        two = sorted(os.path.relpath(f, at("fid2")) for f in glob.glob(at("fid2", "*", "*.png")))
+        if one != two or len(one) != 32:
+            fail(f"cli fid: {len(one)} / {len(two)} files, or other names")
+        for name in one:
+            with open(at("fid1", name), "rb") as a, open(at("fid2", name), "rb") as b:
+                if a.read() != b.read():
+                    fail(f"cli fid: {name} differs between one shard and two")
+        print(f"cli fid: one shard and two shards wrote the same {len(one)} files, bit for bit")
+    finally:
+        tracker.write_png, serving.pipelined_map = orig_png, orig_map
+
+    train = ["--depth", "16", "--vae_ckpt", at("vae.pth"), "--data", "synthetic",
+             "--batch_size", "8", "--seed", str(seed)]
+    steps = lambda n: {"K3": 32 * n, "K4": 16 * n}
+    run("train", ["train", *train, "--steps", "3", "--log_every", "1", "--num_workers", "4",
+                  "--ckpt_dir", at("ck")], steps(3))
+    run("export", ["export", "--depth", "16", "--ckpt_dir", at("ck"), "--out", at("e.pth")])
+    state, _ = CheckpointIO(at("ck")).restore_raw()
+    back = dict(named_leaves(convert_control_var_state_dict(load_torch_state_dict(
+        at("e.pth")), cfg, device="cpu")))
+    want = dict(named_leaves(state["params"]))
+    if sorted(back) != sorted(want) or any(
+            not np.array_equal(back[k].numpy(), want[k]) for k in want):
+        fail("cli export: the re-imported .pth differs from the checkpoint's params")
+    print(f"cli export: the re-imported .pth equals the step-{state['step']} checkpoint's "
+          f"{len(want)} params bit for bit")
+    del state, back, want
+    run("train-var", ["train-var", *train, "--steps", "2"], steps(2))
+    run("train-vqvae --dual", ["train-vqvae", "--vae_ch", "160", "--data", "synthetic",
+                               "--batch_size", "8", "--steps", "2", "--dual",
+                               "--seed", str(seed)])
+
+    @dataclasses.dataclass
+    class Short(imagenetc.SyntheticControlDataset):
+        length: int = 32
+
+    orig_ds = imagenetc.SyntheticControlDataset
+    imagenetc.SyntheticControlDataset = Short
+    print("cli pretokenize: SyntheticControlDataset.length set to 32 for this call "
+          "(10,000 by default; the CLI has no flag for it)")
+    try:
+        run("pretokenize", ["pretokenize", "--depth", "16", "--vae_ckpt", at("vae.pth"),
+                            "--batch_size", "8", "--out", at("tok")])
+    finally:
+        imagenetc.SyntheticControlDataset = orig_ds
+    if len(glob.glob(at("tok", "*.npz"))) != 4:
+        fail("cli pretokenize: expected 4 token shards")
+    run("train --token_shards", ["train", *train, "--token_shards", at("tok", "*.npz"),
+                                 "--steps", "2", "--log_every", "1"], steps(2))
+    shutil.rmtree(scratch, ignore_errors=True)
+    return counts, cli_img_s, bare_img_s, cli_png / cli_loop
+
+
 def category(kernel_name: str) -> str:
     """The device-time category of a kernel (CATEGORIES), else "other"."""
     return next((c for c, keys in CATEGORIES if any(k in kernel_name for k in keys)), "other")
@@ -2593,6 +2854,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase("shared_aln: VAR-d16 sampler (B=16) and train step (B=8)")
     sh_img_s, sh_s = shared_aln_phase(torch, var_config_from_depth(16, shared_aln=True))
+    torch.cuda.empty_cache()
+    phase("CLI: controlvar_tpu_torch.cli.main subcommands at ControlVAR-d16 / ch-160 width")
+    cli_counts, cli_img_s, bare_img_s, png_share = cli_phase(torch, cfg)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2614,7 +2878,9 @@ def main() -> None:
           f"{tok_nll[1]:.6f}, after the last step {tok_nll[-1]:.6f}; "
           f"separator joint: {sep_img_s:.3f} img/s, K1/K2 "
           f"{sep_k12[0]}/{sep_k12[1]} a call; bidirectional step losses {bi_losses[0]:.5f} / "
-          f"{bi_losses[1]:.5f}; shared_aln VAR-d16: {sh_img_s:.3f} img/s, {sh_s:.4f} s/step on")
+          f"{bi_losses[1]:.5f}; shared_aln VAR-d16: {sh_img_s:.3f} img/s, {sh_s:.4f} s/step; "
+          f"CLI eval-cond: {cli_img_s:.3f} img/s (bare harness {bare_img_s:.3f}), PNG share "
+          f"{png_share:.3f} of its loop; CLI launches {json.dumps(cli_counts)} on")
     print(smi)
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in (k1, k2, k3, k4, k5, k6, k7, k8)]}))

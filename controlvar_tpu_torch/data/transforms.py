@@ -64,3 +64,16 @@ class PairedTransform:
             if control is not None:
                 control = control.transpose(Image.FLIP_LEFT_RIGHT)
         return _to_array(image), None if control is None else _to_array(control)
+
+
+def read_image(path: str, image_size: int) -> np.ndarray:
+    """The image file at `path` as the CLI reads it: converted to RGB, then
+    `PairedTransform(image_size, random_crop=False)`; (H, W, 3) float32 in
+    [-1, 1]. Exits naming PIL where PIL is not installed (the GPU machine
+    has none)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise SystemExit(f"reading {path} requires PIL (Pillow, not installed)") from e
+    image, _ = PairedTransform(image_size, random_crop=False)(Image.open(path).convert("RGB"))
+    return image

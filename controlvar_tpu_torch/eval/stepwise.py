@@ -26,6 +26,11 @@ becomes "stacked" when `kv_layout` is not "paired". The JAX package's
 `inplace_decode` and `kv_fused` arguments, for the stacked mode of a paired
 layout; where the JAX package ignores a switch, the port raises. Its
 `groups` (a grouping of jits) has no counterpart.
+
+`sampler` is the route of every draw (`ops/sampling.py:METHODS`): "auto"
+and the bisect names take K2 on the card, "sort" the sort route. The JAX
+package sets it for a whole process (`ops/sampling.py:DEFAULT_METHOD`); here
+each sampler takes it as an argument.
 """
 from __future__ import annotations
 
@@ -40,8 +45,8 @@ from controlvar_tpu_torch.models import transformer as tfm
 from controlvar_tpu_torch.models.control_var import ControlVARModel
 from controlvar_tpu_torch.models.masks import attn_mask_for_config
 from controlvar_tpu_torch.models.vqvae import VQVAE
-from controlvar_tpu_torch.ops.sampling import (gumbel_softmax, sample_top_k_top_p,
-                                               smooth_temperature)
+from controlvar_tpu_torch.ops.sampling import (METHODS, gumbel_softmax,
+                                               sample_top_k_top_p, smooth_temperature)
 
 Params = Dict
 
@@ -68,6 +73,7 @@ class _SamplerBase:
     kv_fused: bool
     device: DeviceLike
     compute_dtype: torch.dtype
+    sampler: str
 
     def _setup(self):
         """The ControlVAR samplers' checks, their `indep` mask, then the
@@ -88,6 +94,8 @@ class _SamplerBase:
         cfg = self.model.cfg
         self.device = resolve_device(self.device)
         self.quant = self.vqvae.quantizer
+        if self.sampler not in METHODS:
+            raise ValueError(f"unknown sampler {self.sampler!r}; use one of {METHODS}")
         if self.cache_mode not in ("stacked", "seg"):
             raise ValueError(f"unknown cache_mode {self.cache_mode!r}")
         if self.kv_fused:
@@ -174,6 +182,7 @@ class StepwiseJointSampler(_SamplerBase):
     kv_fused: bool = False
     device: DeviceLike = None
     compute_dtype: torch.dtype = torch.bfloat16
+    sampler: str = "auto"
 
     def __post_init__(self):
         self._setup()
@@ -207,7 +216,8 @@ class StepwiseJointSampler(_SamplerBase):
         x, cache_k, cache_v = self._blocks(params, si, next_map, cond, cache_k, cache_v)
         t = self.cfg_scale * si / (SN - 1)
         logits = tfm.head_logits_cfg(params, x, cond, cfg, (1.0 + t, -t))[:, :, : cfg.vocab_size]
-        ids = sample_top_k_top_p(logits, self.top_k, self.top_p, generator)
+        ids = sample_top_k_top_p(logits, self.top_k, self.top_p, generator,
+                                 method=self.sampler)
         l = pn * pn
         # the image tokens sit at [l + num_sp, 2l + num_sp)
         num_sp = 1 if (cfg.separator and si > 0) else 0
@@ -287,6 +297,7 @@ class StepwiseCondSampler(_SamplerBase):
     kv_fused: bool = False
     device: DeviceLike = None
     compute_dtype: torch.dtype = torch.bfloat16
+    sampler: str = "auto"
 
     def __post_init__(self):
         if (self.repeat_num not in (3, 4) or self.force not in ("control", "image")
@@ -336,7 +347,8 @@ class StepwiseCondSampler(_SamplerBase):
             sample_in = torch.cat([combined[:, l:], combined], dim=1)
         else:
             sample_in = torch.cat([combined[:, :l], combined], dim=1)
-        out = sample_top_k_top_p(sample_in, self.top_k, self.top_p, generator)
+        out = sample_top_k_top_p(sample_in, self.top_k, self.top_p, generator,
+                                 method=self.sampler)
         a_sampled, b_ids = out[:, :l], out[:, l:]
         if self.force == "control":
             ids_a = torch.cat([forced, a_sampled], dim=1)
@@ -421,6 +433,7 @@ class StepwiseVARSampler(_SamplerBase):
     kv_fused: bool = False
     device: DeviceLike = None
     compute_dtype: torch.dtype = torch.bfloat16
+    sampler: str = "auto"
 
     def __post_init__(self):
         self._full_mask = None  # plain VAR has no indep masking
@@ -436,7 +449,8 @@ class StepwiseVARSampler(_SamplerBase):
         x, cache_k, cache_v = self._blocks(params, si, next_map, cond, cache_k, cache_v)
         t = self.cfg_scale * si / (SN - 1)
         logits = tfm.head_logits_cfg(params, x, cond, cfg, (1.0 + t, -t))
-        ids = sample_top_k_top_p(logits, self.top_k, self.top_p, generator)
+        ids = sample_top_k_top_p(logits, self.top_k, self.top_p, generator,
+                                 method=self.sampler)
         if self.more_smooth:  # gumbel soft embeddings
             factor, tau = smooth_temperature(si, SN)
             soft = gumbel_softmax(logits * factor, tau, generator=generator)

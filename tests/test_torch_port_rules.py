@@ -286,3 +286,25 @@ def test_training_slice_entry_points_raise_without_cuda_and_device(no_cuda, tmp_
     monkeypatch.setenv("PROCESS_ID", "0")
     with pytest.raises(RuntimeError, match="CUDA"):
         distributed.initialize()
+
+
+def test_cli_raises_without_cuda_and_device_and_runs_with_device_cpu(no_cuda, tmp_path,
+                                                                     capsys):
+    """The CLI is an entry point: without --device and without a GPU every
+    subcommand raises before any work; --device cpu runs it (the image
+    subcommands and the evaluation layer are in the port, PIL-free at
+    import)."""
+    from controlvar_tpu_torch.cli.main import COMMANDS, main
+
+    smoke = ["--depth", "2", "--vae_ch", "32", "--patch_nums", "1", "2", "4"]
+    for cmd in COMMANDS:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main([cmd, *smoke, "--out", str(tmp_path / cmd)] if cmd not in (
+                "train", "train-var", "train-vqvae") else [cmd, *smoke])
+    assert not list(tmp_path.iterdir())
+    main(["sample", *smoke, "--batch_size", "1", "--device", "cpu",
+          "--out", str(tmp_path / "s")])
+    assert "wrote 1 samples" in capsys.readouterr().out
+    for name in ("cli/main.py", "eval/serving.py", "eval/harness.py"):
+        path = ROOT / "controlvar_tpu_torch" / name
+        assert path in PORT_FILES and not list(_image_imports(path)), name
