@@ -14,7 +14,9 @@ Run from the root of a checkout. Phases, each fatal on failure:
      64, l 8); its and SDPA's device times at every serving scale and
      summed over one call (x 16); then at every scale's (l, cur) of the d16
      separator joint path (16 CFG rows, l = 2 (pn^2 + 1), cur up to 1378),
-     with its and SDPA's times per scale and per call;
+     with its and SDPA's times per scale and per call; then at every serving
+     scale over a tensor-parallel rank's cache (model=2: 8 of the 16 heads),
+     with its, the plain version's and SDPA's times at the final scale;
   4. K2 bisection sampling vs its plain version on the same noise at every
      scale's row count (top-k alone: the same ids on every row; with top-p:
      on >= 0.999 of them), on tied and on flat logits, at V = 1000, with
@@ -27,13 +29,15 @@ Run from the root of a checkout. Phases, each fatal on failure:
      at the VAR-d16 one (8, 16, 680, 64: a 40-row last tile) under its
      block-causal mask, at the d16 separator one (8, 16, 1378, 64: scale
      edges off the 64-row tiles, a 34-row last tile) under its block-causal
-     mask, and under a random pattern of 64 x 64 tiles (fully
-     masked tiles anywhere, the diagonal kept), with q, k, v and dO strided
+     mask, under a random pattern of 64 x 64 tiles (fully
+     masked tiles anywhere, the diagonal kept) and at a tensor-parallel
+     rank's shape (8, 8, 1360, 64), with q, k, v and dO strided
      as the training path gives them, and at a small ragged shape under a causal
      mask; K3 also with rows that attend nowhere and at a scale that is not
      a power of two (0.9/32); K3 and K4 each run twice on the same inputs
      give the same bits; with their times, the plain versions' and SDPA's
-     (forward, and its autograd backward) at the three training shapes;
+     (forward, and its autograd backward) at the three training shapes and
+     at the tensor-parallel rank's;
   6. K5 prefix decode vs its plain version at every scale's (pos, l) of
      the d24 joint path's segmented cache (16 CFG rows, 24 heads), over the
      full prefix and over the kv_window=2 one, on the views
@@ -171,7 +175,21 @@ Run from the root of a checkout. Phases, each fatal on failure:
      96/48) -> export --ckpt_dir (the re-imported .pth equal to the
      checkpoint's params bit for bit), train-var --steps 2, train-vqvae
      --dual --steps 2 (B=8), and pretokenize (the synthetic split cut to 32
-     samples, four shards) -> train --token_shards --steps 2.
+     samples, four shards) -> train --token_shards --steps 2;
+ 24. tensor parallelism at full d16 width over model=2: the one-device
+     north-star call (gates raised) and train step recorded here, then two
+     ranks of this script (`--tp-rank`) on this one card in a gloo group
+     (NCCL refuses two ranks on one device), each with make_mesh(model=2)
+     and its shard of the same params: a warm-up and a timed north-star
+     call (B=16, every count set to 0 just before it: K1 160, K2 10 a rank;
+     the ranks' generators seeded apart, their ids equal: model rank 0's
+     draw, broadcast), a call on the one-device run's ids whose combined
+     logits at scales 1 and 9 agree with that run's (TP_LOGIT_REL_L2), one
+     train step (K3/K4 32/16 a rank; loss, grad_norm, gradient cosines and
+     the gathered params after it against the one-device step) and two
+     timed ones, then `cli.main train --model_axis 2` for one step (K3/K4
+     32/16) on a second group. Its img/s and s/step are those of two ranks
+     sharing one card over gloo: a correctness run, not TP speed.
 Prints the card, a `kernels` JSON line (K1-K8) and, last,
 {"ok": true, "device": ...}.
 It exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -404,23 +422,34 @@ def k1_phase(torch, cfg, cfg24, sep_cfg):
 
     scale_times("K1", k1_cases(), cfg.depth, "serving call")
 
-    # timing at the final scale, unmasked
-    l, cur = 512, L
-    q = rand_q(l)
-    kk, vv = ck[1, :, :, :cur], cv[1, :, :, :cur]
-    ms = cuda_ms(lambda: decode_attention(q, ck, cv, 1, cur, scale), 20)
-    plain_ms = cuda_ms(lambda: decode_attention_plain(q, kk, vv, scale), 5)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, vv, scale=scale), 20)
-    nbytes = 2 * (2 * q.numel() + 2 * R_B * H * cur * hd)   # q, out, K, V in bf16
-    flops = 4 * R_B * H * l * cur * hd
-    b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
-    print(f"K1 final scale: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    def final_scale(label, ck, cv, heads):
+        """K1's, its plain version's and SDPA's times at the serving path's
+        final scale (l 512, cur 1360), unmasked, with the bound."""
+        l, cur = 512, L
+        q = rand_q(l, H=heads)
+        kk, vv = ck[1, :, :, :cur], cv[1, :, :, :cur]
+        ms = cuda_ms(lambda: decode_attention(q, ck, cv, 1, cur, scale), 20)
+        plain_ms = cuda_ms(lambda: decode_attention_plain(q, kk, vv, scale), 5)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, vv, scale=scale), 20)
+        nbytes = 2 * (2 * q.numel() + 2 * R_B * heads * cur * hd)   # q, out, K, V in bf16
+        flops = 4 * R_B * heads * l * cur * hd
+        b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+        print(f"K1 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    full = final_scale("final scale", ck, cv, H)
+    # a tensor-parallel rank's cache at model=2: 8 of the 16 heads
+    Ht = H // 2
+    ckt, cvt = ck[:, :, :Ht].contiguous(), cv[:, :, :Ht].contiguous()
+    for lo, cur in cfg.begin_ends:
+        errs.append(case(f"K1 tensor-parallel rank (8 heads) l={cur - lo} cur={cur}",
+                         rand_q(cur - lo, H=Ht), ckt, cvt, 1, cur))
+    tp_rank = final_scale("tensor-parallel rank (8 heads), final scale", ckt, cvt, Ht)
     return dict(name="decode_attention", route="cuda",
                 source="controlvar_tpu_torch/csrc/decode_attention.cu",
                 replaces="controlvar_tpu/ops/attention.py:403",
-                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                max_abs_err=max(errs), tp_rank=tp_rank, **full)
 
 
 def k2_phase(torch, V, patch_nums):
@@ -620,7 +649,9 @@ def flash_phase(torch, cfg, var_cfg, sep_cfg):
              ("ragged (2, 3, 100, 64), causal", 2, 3,
               torch.ones(100, 100, dtype=torch.bool, device=dev).tril(), False),
              ("random 64x64 tile pattern (8, 16, 1360, 64), strided", 8, cfg.num_heads,
-              tile_pattern_mask(cfg.seq_len), True)]
+              tile_pattern_mask(cfg.seq_len), True),
+             ("d16 tensor-parallel rank (8, 8, 1360, 64), block-causal, strided", 8,
+              cfg.num_heads // 2, train_mask, True)]
 
     def check_k3(name, q, k, v, mask, sc, out, lse):
         """K3's out and lse against the plain version's, and a second run on
@@ -706,14 +737,19 @@ def flash_phase(torch, cfg, var_cfg, sep_cfg):
     (ms3, plain3, lib3, b3), (ms4, plain4, lib4, b4) = times("d16 train shape", B, H, train_mask)
     times("VAR-d16 train shape (8, 16, 680, 64)", 8, var_cfg.num_heads, var_mask)
     times("d16 separator train shape (8, 16, 1378, 64)", 8, sep_cfg.num_heads, sep_mask)
+    tp3, tp4 = times("d16 tensor-parallel rank shape (8, 8, 1360, 64)", 8, H // 2, train_mask)
+    tp_rank = lambda ms, plain, lib, b: dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                             bound_ms=b[0], bound_by=b[1])
     return (dict(name="flash_attention", route="cuda",
                  source="controlvar_tpu_torch/csrc/flash_attention.cu",
                  replaces="controlvar_tpu/ops/attention.py:99", max_abs_err=max(errs3),
-                 ms=ms3, plain_ms=plain3, bound_ms=b3[0], bound_by=b3[1], library_ms=lib3),
+                 ms=ms3, plain_ms=plain3, bound_ms=b3[0], bound_by=b3[1], library_ms=lib3,
+                 tp_rank=tp_rank(*tp3)),
             dict(name="flash_attention_bwd", route="cuda",
                  source="controlvar_tpu_torch/csrc/flash_attention.cu",
                  replaces="controlvar_tpu/ops/attention.py:1085", max_abs_err=max(errs4),
-                 ms=ms4, plain_ms=plain4, bound_ms=b4[0], bound_by=b4[1], library_ms=lib4))
+                 ms=ms4, plain_ms=plain4, bound_ms=b4[0], bound_by=b4[1], library_ms=lib4,
+                 tp_rank=tp_rank(*tp4)))
 
 
 def prefix_phase(torch, cfg):
@@ -2434,6 +2470,316 @@ def tokenizer_reference(torch, devices=("cpu", "cuda")):
           f"the gradient is clear of the noise {worst_param:.3e} (lr {lr:g})")
 
 
+# ---- tensor parallelism: two ranks on this one card --------------------------
+
+# The tensor-parallel run (model=2, bf16 on the card) against the same call or
+# step on one device, both from the same seeds. Serving: the ranks' draws are
+# replaced by the one-device call's ids, so both sides see the same inputs at
+# every scale, and the CFG-combined logits of scales 1 and 9 are held to a
+# relative L2 error of 2^-5: the row-parallel sums round each rank's bf16
+# partial product before an fp32 sum where the one-device product rounds the
+# whole sum once, ~2^-9 relative each, compounded over 16 layers and the
+# final LayerNorm (~2^-7 expected), with a factor 4 of room. Training: the
+# loss within 2^-8 relative (TRAIN_LOSS_RTOL), grad_norm within 2^-6, the
+# clipped gradient's cosine (whole and per block leaf) >= 0.999
+# (TRAIN_GRAD_COS), and every param after the step within 2 lr of the
+# one-device step's plus two fp32 ulps: AdamW's first step moves a param by
+# lr m/(sqrt(v) + eps), at most lr either way, so a gradient element that
+# bf16 noise flips may move it 2 lr apart and nothing else may.
+TP_LOGIT_REL_L2 = 2.0 ** -5
+TP_GRAD_NORM_RTOL = 2.0 ** -6
+TP_CALL_TIMEOUT_S = 400
+
+
+def _tp_models(torch, cfg, mesh):
+    """The d16 multi_cond model (tensor parallel on `mesh`), the ch-160
+    VQVAE and their params from seeds: gates raised, this rank's shard."""
+    from controlvar_tpu_torch.config import VQVAEConfig
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.parallel.tensor import shard_params
+
+    model, vqvae = ControlVARModel(cfg, mesh=mesh), VQVAE(VQVAEConfig())
+    params = raise_gates(model.init_params(0))
+    if model.tp is not None:
+        params = shard_params(mesh, params, mesh.model_index, cfg)
+    return model, vqvae, params, vqvae.init_params(1)
+
+
+def _tp_serving_inputs(torch, cfg, B=16):
+    g = torch.Generator().manual_seed(3)
+    labels = torch.randint(0, cfg.num_classes, (B,), generator=g)
+    cond_type = torch.randint(0, 4, (B,), generator=g)
+    imgs = (torch.rand(B, 256, 256, 3, generator=g) * 2 - 1).cuda()
+    return labels, cond_type, imgs
+
+
+@contextlib.contextmanager
+def _tp_recorded(torch, forced=None):
+    """(ids of every draw after the model group's broadcast, {scale: the
+    CFG-combined logits of scales 1 and 9}); with `forced`, each draw is
+    replaced by forced[scale]."""
+    from controlvar_tpu_torch.eval import stepwise
+    from controlvar_tpu_torch.models import transformer as tfm
+
+    ids, logits = [], {}
+    draw, head = stepwise.tp_draw, tfm.head_logits_cfg
+
+    def spy_draw(x, tp):
+        out = draw(x, tp)
+        if forced is not None:
+            out = forced[len(ids)].to(out.device)
+        ids.append(out)
+        return out
+
+    def spy_head(*args, **kwargs):
+        out = head(*args, **kwargs)
+        if len(ids) in (1, 9):
+            logits[len(ids)] = out[..., : args[3].vocab_size].detach().clone()
+        return out
+
+    stepwise.tp_draw, tfm.head_logits_cfg = spy_draw, spy_head
+    try:
+        yield ids, logits
+    finally:
+        stepwise.tp_draw, tfm.head_logits_cfg = draw, head
+
+
+def _tp_train_step(torch, cfg, model, vqvae, params, vq_params):
+    """The training path's step (B=8, d16 multi_cond, AdamW) on `params`:
+    (stepper, state, batch, generator seed)."""
+    from controlvar_tpu_torch.config import OptimConfig
+    from controlvar_tpu_torch.train.train_step import ControlVARTrainStep, init_train_state
+
+    optim = OptimConfig(total_batch_size=8)
+    stepper = ControlVARTrainStep(model, vqvae, optim, max_steps=1000, warmup_steps=10)
+    return stepper, init_train_state(params, optim), _pixel_batch(torch, 8, cfg.num_classes, 5)
+
+
+def tp_rank_main(rank: int, port: str, port_cli: str, directory: str) -> None:
+    """One rank of the tensor-parallel phase (`python3 chip_smoke.py
+    --tp-rank RANK PORT PORT_CLI DIR`): a gloo group of two on this card,
+    make_mesh(model=2), the d16 north-star call (a warm-up, a timed call
+    with K1/K2 counted, a call on the one-device run's ids whose logits it
+    holds to that run's), the train step (a compared step with K3/K4
+    counted, two timed), then `cli.main train --model_axis 2` for one step
+    on a second group. Writes DIR/rank<RANK>.json and .pt."""
+    import math
+
+    import torch
+
+    from controlvar_tpu_torch.config import SampleConfig, control_var_config_from_depth
+    from controlvar_tpu_torch.device import tree_map
+    from controlvar_tpu_torch.eval.harness import SamplingHarness
+    from controlvar_tpu_torch.ops.attention import (decode_attention, flash_attention,
+                                                    flash_attention_bwd)
+    from controlvar_tpu_torch.ops.sample_kernel import sample_top_k_top_p_bisect
+    from controlvar_tpu_torch.parallel import distributed
+    from controlvar_tpu_torch.parallel.mesh import make_mesh
+    from controlvar_tpu_torch.parallel.tensor import gather_params
+
+    kernels = (decode_attention, sample_top_k_top_p_bisect, flash_attention, flash_attention_bwd)
+    cfg = control_var_config_from_depth(16, multi_cond=True)
+    distributed.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+    mesh = make_mesh(model=2, cfg=cfg)
+    res = {"rank": rank, "mesh": [mesh.data, mesh.model, mesh.data_index, mesh.model_index]}
+    model, vqvae, params, vq_params = _tp_models(torch, cfg, mesh)
+    res["heads"] = params["blocks"]["qkv_kernel"].shape[-1] // (3 * cfg.head_dim)
+    harness = SamplingHarness(model, vqvae, SampleConfig())
+    serve_params = harness.prepare_params(params)
+    labels, cond_type, imgs = _tp_serving_inputs(torch, cfg)
+
+    def call(seed, forced=None):
+        _reset(*kernels)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with _tp_recorded(torch, forced) as (ids, logits):
+            out = harness.control_conditioned(serve_params, vq_params, labels, cond_type,
+                                              torch.Generator().manual_seed(seed), imgs)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, ids, logits, out, [k.launches for k in kernels[:2]]
+
+    res["serve_warmup_s"] = call(10)[0]
+    dt, ids, _, out, counts = call(11 + rank)  # the ranks' generators differ
+    res.update(serve_s=dt, serve_counts=counts,
+               canvases_ok=all(tuple(t.shape) == (16, 256, 256, 3) and bool(torch.isfinite(t).all())
+                               and float(t.min()) >= 0.0 and float(t.max()) <= 1.0 for t in out))
+    ref = torch.load(os.path.join(directory, "serve_ref.pt"), weights_only=True)
+    _, _, logits, _, _ = call(11, forced=ref["ids"])
+    res["logits"] = {}
+    for si, want in ref["logits"].items():
+        got, want = logits[si].float(), want.cuda().float()
+        res["logits"][str(si)] = dict(rel_l2=float((got - want).norm() / want.norm()),
+                                      max_abs=float((got - want).abs().max()),
+                                      max_want=float(want.abs().max()))
+    del serve_params, harness
+    torch.cuda.empty_cache()
+    stepper, state, batch = _tp_train_step(torch, cfg, model, vqvae, params, vq_params)
+    _reset(*kernels)
+    state, aux = stepper.step(state, vq_params, batch, torch.Generator().manual_seed(6))
+    res.update(step_counts=[k.launches for k in kernels[2:]], loss=float(aux["loss"]),
+               grad_norm=float(aux["grad_norm"]), lr=float(aux["lr"]))
+    grads = gather_params(mesh, tree_map(lambda t: t.grad, state.params), cfg)
+    whole = gather_params(mesh, state.params, cfg)
+    if rank == 0:
+        torch.save({"params": tree_map(lambda t: t.cpu(), whole),
+                    "grads": tree_map(lambda t: t.cpu(), grads)},
+                   os.path.join(directory, "train_rank0.pt"))
+    del grads, whole
+    times = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, aux = stepper.step(state, vq_params, batch, torch.Generator().manual_seed(7 + i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        res.setdefault("timed_losses", []).append(float(aux["loss"]))
+    res["step_s"] = times
+    torch.save({"ids": [t.cpu() for t in ids]}, os.path.join(directory, f"ids_rank{rank}.pt"))
+    del state, stepper
+    distributed.shutdown()
+    torch.cuda.empty_cache()
+    # the command line: train --model_axis 2, one d16 step on synthetic data
+    from controlvar_tpu_torch.cli import main as cli
+
+    os.environ.update(COORDINATOR_ADDRESS=f"localhost:{port_cli}", NUM_PROCESSES="2",
+                      PROCESS_ID=str(rank), DIST_BACKEND="gloo")
+    _reset(*kernels)
+    t = time.perf_counter()
+    cli.main(["train", "--depth", "16", "--multi_cond", "--batch_size", "8", "--steps", "1",
+              "--log_every", "1", "--num_workers", "1", "--model_axis", "2", "--epochs", "1"])
+    torch.cuda.synchronize()
+    res.update(cli_s=time.perf_counter() - t, cli_counts=[k.launches for k in kernels[2:]])
+    distributed.shutdown()
+    res["finite"] = all(math.isfinite(x) for x in [res["loss"], res["grad_norm"]]
+                        + res["timed_losses"])
+    with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def tp_phase(torch, cfg, smi: str):
+    """Tensor parallelism over model=2 at full d16 width: the one-device
+    references in this process, then two ranks on this card in a gloo group
+    (NCCL refuses two ranks on one device), each running `tp_rank_main`.
+    Returns a summary dict."""
+    from controlvar_tpu_torch.config import SampleConfig
+    from controlvar_tpu_torch.eval.harness import SamplingHarness
+    from controlvar_tpu_torch.train.param_groups import named_leaves
+
+    tmp = _scratch_dir()
+    d = tmp.name
+    # the one-device north-star call, recorded
+    model, vqvae, params, vq_params = _tp_models(torch, cfg, None)
+    harness = SamplingHarness(model, vqvae, SampleConfig())
+    serve_params = harness.prepare_params(params)
+    labels, cond_type, imgs = _tp_serving_inputs(torch, cfg)
+    with _tp_recorded(torch) as (ids, logits):
+        harness.control_conditioned(serve_params, vq_params, labels, cond_type,
+                                    torch.Generator().manual_seed(11), imgs)
+    torch.save({"ids": [t.cpu() for t in ids], "logits": {k: v.cpu() for k, v in logits.items()}},
+               os.path.join(d, "serve_ref.pt"))
+    del serve_params, harness, logits
+    # the one-device train step, from the same params and draws
+    stepper, state, batch = _tp_train_step(torch, cfg, model, vqvae, params, vq_params)
+    state, aux = stepper.step(state, vq_params, batch, torch.Generator().manual_seed(6))
+    one = dict(loss=float(aux["loss"]), grad_norm=float(aux["grad_norm"]), lr=float(aux["lr"]))
+    one_params = {k: v.detach() for k, v in named_leaves(state.params)}
+    one_grads = {k: v.grad for k, v in named_leaves(state.params)}
+    torch.cuda.empty_cache()
+    ports = [str(_free_port()), str(_free_port())]
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+                               *ports, d], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            out, _ = p.communicate(timeout=TP_CALL_TIMEOUT_S)
+            outs.append(out)
+            if p.returncode != 0:
+                print(out[-6000:])
+                fail(f"tensor-parallel rank {r} exited with {p.returncode}")
+    except subprocess.TimeoutExpired:
+        fail(f"a tensor-parallel rank ran past {TP_CALL_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.time() - t0
+    res = []
+    for r in range(2):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    for r, x in enumerate(res):
+        print(f"tensor-parallel rank {r}: mesh (data, model, data index, model index) = "
+              f"{tuple(x['mesh'])}, {x['heads']} heads; serving warm-up {x['serve_warmup_s']:.3f}"
+              f" s, timed call {x['serve_s']:.4f} s (K1, K2) = {tuple(x['serve_counts'])}; train "
+              f"step loss {x['loss']:.6f} grad_norm {x['grad_norm']:.6f} (K3, K4) = "
+              f"{tuple(x['step_counts'])}, timed steps "
+              f"{', '.join(f'{s:.4f}' for s in x['step_s'])} s; CLI train --model_axis 2: "
+              f"{x['cli_s']:.3f} s, (K3, K4) = {tuple(x['cli_counts'])}")
+        if x["mesh"] != [1, 2, 0, r] or x["heads"] != cfg.num_heads // 2:
+            fail(f"tensor-parallel rank {r}: layout {x['mesh']}, {x['heads']} heads")
+        if x["serve_counts"] != [cfg.depth * cfg.num_scales, cfg.num_scales]:
+            fail(f"tensor-parallel rank {r}: launches (K1, K2) = {x['serve_counts']}")
+        if x["step_counts"] != [2 * cfg.depth, cfg.depth] or x["cli_counts"] != x["step_counts"]:
+            fail(f"tensor-parallel rank {r}: launches (K3, K4) = {x['step_counts']}, CLI "
+                 f"{x['cli_counts']}")
+        if not (x["canvases_ok"] and x["finite"]):
+            fail(f"tensor-parallel rank {r}: a canvas or a loss is bad")
+        for si, e in x["logits"].items():
+            print(f"tensor-parallel rank {r}: combined logits at scale {si} vs one device: "
+                  f"rel L2 {e['rel_l2']:.3e} (limit {TP_LOGIT_REL_L2:g}), max abs "
+                  f"{e['max_abs']:.3e} of max {e['max_want']:.3e}")
+            if not e["rel_l2"] <= TP_LOGIT_REL_L2:
+                fail(f"tensor-parallel rank {r}: scale {si} logits rel L2 {e['rel_l2']:.3e}")
+    ids = [torch.load(os.path.join(d, f"ids_rank{r}.pt"), weights_only=True)["ids"]
+           for r in range(2)]
+    if len(ids[0]) != cfg.num_scales or not all(torch.equal(a, b) for a, b in zip(*ids)):
+        fail("tensor-parallel ranks drew different ids")
+    print(f"tensor-parallel ranks: every scale's ids equal on both ranks (their generators "
+          f"were seeded apart: model rank 0's draw, broadcast)")
+    # the train step against the one-device step
+    tp = torch.load(os.path.join(d, "train_rank0.pt"), weights_only=True)
+    tp_params, tp_grads = dict(named_leaves(tp["params"])), dict(named_leaves(tp["grads"]))
+    x = res[0]
+    rel = abs(x["loss"] - one["loss"]) / abs(one["loss"])
+    rel_norm = abs(x["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+    cosine = lambda a, b: float((a.double() @ b.double()) / (a.double().norm() * b.double().norm()))
+    flat = lambda g: torch.cat([g[k].reshape(-1).float().cuda() for k in sorted(g)])
+    cos = cosine(flat(tp_grads), flat(one_grads))
+    leaf_cos = {k: cosine(tp_grads[k].reshape(-1).cuda(), one_grads[k].reshape(-1))
+                for k in one_grads if k.startswith("blocks/")}
+    worst = min(leaf_cos, key=leaf_cos.get)
+    excess = max(float(((tp_params[k].cuda() - v).abs()
+                        - (2 * one["lr"] + 2.0 ** -22 * v.abs())).max())
+                 for k, v in one_params.items())
+    print(f"tensor-parallel train step vs one device: loss {x['loss']:.6f} vs {one['loss']:.6f} "
+          f"(relative {rel:.3e}), grad_norm {x['grad_norm']:.6f} vs {one['grad_norm']:.6f} "
+          f"(relative {rel_norm:.3e}), gradient cosine {cos:.6f}, worst block leaf {worst} "
+          f"{leaf_cos[worst]:.6f}, params after the step: largest |diff| - (2 lr + 2 ulp) = "
+          f"{excess:.3e} (lr {one['lr']:.3e})")
+    if not (rel <= TRAIN_LOSS_RTOL and rel_norm <= TP_GRAD_NORM_RTOL and cos >= TRAIN_GRAD_COS
+            and leaf_cos[worst] >= TRAIN_GRAD_COS and excess <= 0.0):
+        fail("tensor-parallel train step outside its limits against the one-device step")
+    img_s = 16 / x["serve_s"]
+    s_step = sum(x["step_s"]) / len(x["step_s"])
+    print(f"tensor-parallel d16 (model=2): {img_s:.3f} img/s, {s_step:.4f} s/step, phase "
+          f"{wall:.1f} s with the ranks' start-up, on {smi}: two ranks sharing one card over "
+          f"gloo: a correctness run, not TP speed")
+    tmp.cleanup()
+    return dict(img_s=img_s, s_step=s_step, counts=res[0]["serve_counts"] + res[0]["step_counts"])
+
+
 def read_png(path):
     """The (H, W, 3) uint8 pixels of an 8-bit RGB PNG as `write_png` writes
     it (one IDAT stream, every scanline with filter type 0)."""
@@ -2750,6 +3096,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--tp-rank"]:
+        rank, port, port_cli, directory = sys.argv[2:6]
+        tp_rank_main(int(rank), port, port_cli, directory)
+        return
     from controlvar_tpu_torch.config import (VQVAEConfig, control_var_config_from_depth,
                                              var_config_from_depth)
     from controlvar_tpu_torch.ops import _build
@@ -2857,6 +3207,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase("CLI: controlvar_tpu_torch.cli.main subcommands at ControlVAR-d16 / ch-160 width")
     cli_counts, cli_img_s, bare_img_s, png_share = cli_phase(torch, cfg)
+    torch.cuda.empty_cache()
+    phase("tensor parallelism: ControlVAR-d16 over model=2, two ranks on this card (gloo): "
+          "the north-star call, the train step, train --model_axis 2")
+    tp = tp_phase(torch, cfg, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2880,8 +3234,14 @@ def main() -> None:
           f"{sep_k12[0]}/{sep_k12[1]} a call; bidirectional step losses {bi_losses[0]:.5f} / "
           f"{bi_losses[1]:.5f}; shared_aln VAR-d16: {sh_img_s:.3f} img/s, {sh_s:.4f} s/step; "
           f"CLI eval-cond: {cli_img_s:.3f} img/s (bare harness {bare_img_s:.3f}), PNG share "
-          f"{png_share:.3f} of its loop; CLI launches {json.dumps(cli_counts)} on")
+          f"{png_share:.3f} of its loop; CLI launches {json.dumps(cli_counts)}; tensor-parallel "
+          f"d16 (model=2, two ranks sharing one card over gloo: a correctness run, not TP "
+          f"speed): {tp['img_s']:.3f} img/s, {tp['s_step']:.4f} s/step, launches a rank "
+          f"(K1, K2, K3, K4) {tuple(tp['counts'])} on")
     print(smi)
+    tp_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    print("tensor-parallel rank shape (8 of 16 heads): " + json.dumps(
+        {e["name"]: {k: e["tp_rank"][k] for k in tp_keys} for e in (k1, k3, k4)}))
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in (k1, k2, k3, k4, k5, k6, k7, k8)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

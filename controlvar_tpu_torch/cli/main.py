@@ -16,6 +16,12 @@ configs override the dataclass defaults and explicit flags override YAML
 (the reference's two-pass precedence). `--config` needs pyyaml and the
 image-file subcommands (`tokenize`, `recon`, `sample --cond_image`) need
 PIL; both are imported only where used. PNGs are written with zlib.
+
+`train --model_axis N` trains tensor parallel over N ranks a model of the
+process group that --coordinator_address/--num_processes/--process_id (or
+COORDINATOR_ADDRESS, NUM_PROCESSES and PROCESS_ID) join, one process a
+rank; DIST_BACKEND=gloo lets ranks share one card. --batch_size is per
+data shard: the ranks of one model group read the same rows.
 """
 from __future__ import annotations
 
@@ -442,31 +448,32 @@ def cmd_export(args):
 def cmd_train(args):
     from controlvar_tpu_torch.config import OptimConfig
     from controlvar_tpu_torch.data.build import Loader, create_dataset
-    from controlvar_tpu_torch.parallel import distributed as dist
+    from controlvar_tpu_torch.parallel.mesh import data_shard
     from controlvar_tpu_torch.train.trainer import Trainer
 
     vq_cfg, cfg = _configs(args)
     _, vq_params = _load_vqvae(args, vq_cfg)
-    # --batch_size is PER PROCESS: each rank loads a disjoint shard of every
-    # epoch and the lr scale uses the GLOBAL batch (reference:
+    # --batch_size is PER DATA SHARD: each data index loads a disjoint shard
+    # of every epoch (the --model_axis ranks of one model group read the
+    # same rows) and the lr scale uses the GLOBAL batch (reference:
     # train_control_var_hpu.py:569-574, 631-633)
+    shard_id, num_shards = data_shard(args.model_axis)
     if args.token_shards:
         # pre-tokenized path: one shard file = one batch (written by
         # `pretokenize`); the per-process batch is whatever the shards carry
         from controlvar_tpu_torch.data.shards import TokenShardLoader, read_token_shard
 
-        loader = TokenShardLoader(args.token_shards, seed=args.seed,
-                                  shard_id=dist.process_index(),
-                                  num_shards=dist.process_count())
+        loader = TokenShardLoader(args.token_shards, seed=args.seed, shard_id=shard_id,
+                                  num_shards=num_shards)
         per_proc_bs = int(read_token_shard(loader.paths[0])["cls"].shape[0])
     else:
         ds = create_dataset(args.data, **_synthetic_kwargs(args, cfg, vq_cfg))
         loader = Loader(ds, batch_size=args.batch_size, num_workers=args.num_workers,
-                        shard_id=dist.process_index(), num_shards=dist.process_count())
+                        shard_id=shard_id, num_shards=num_shards)
         per_proc_bs = args.batch_size
     optim = OptimConfig(base_lr=args.lr, weight_decay=args.wd, weight_decay_end=args.wd_end,
                         schedule=args.schedule, epochs=args.epochs,
-                        total_batch_size=per_proc_bs * dist.process_count(),
+                        total_batch_size=per_proc_bs * num_shards,
                         grad_accum=args.grad_accum)
     trainer = Trainer(cfg, vq_cfg, optim, loader, vq_params, ckpt_dir=args.ckpt_dir,
                       model_axis=args.model_axis, lora_rank=args.lora,

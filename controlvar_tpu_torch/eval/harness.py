@@ -59,7 +59,9 @@ class SamplingHarness:
     conditional modes (the forced stream is the caller's input); the other
     member of the returned pair is then its raw f_hat, not pixels. sampler
     is the route of every draw of the three samplers
-    (`ops/sampling.py:METHODS`; "sort" keeps K2 out)."""
+    (`ops/sampling.py:METHODS`; "sort" keeps K2 out). A model whose mesh
+    has a model axis above 1 takes its samplers tensor parallel, on this
+    rank's shard of the params (`eval/stepwise.py`)."""
 
     model: ControlVARModel
     vqvae: VQVAE

@@ -31,6 +31,15 @@ layout; where the JAX package ignores a switch, the port raises. Its
 and the bisect names take K2 on the card, "sort" the sort route. The JAX
 package sets it for a whole process (`ops/sampling.py:DEFAULT_METHOD`); here
 each sampler takes it as an argument.
+
+A ControlVAR model whose mesh has a model axis above 1 runs the samplers
+tensor parallel on this rank's shard of the params: the
+stacked cache holds the shard's heads, the logits are gathered whole, and
+each scale's ids are model rank 0's draw, broadcast over the model group
+(every rank draws, so that the generators stay in step). The VQVAE stays
+whole on every rank. The segmented cache (`kv_window`), in-place decode and
+the flat and fused layouts are not ported to tensor parallelism yet, nor is
+the plain-VAR sampler: they raise NotImplementedError there.
 """
 from __future__ import annotations
 
@@ -42,7 +51,7 @@ import torch
 from controlvar_tpu_torch.config import COND_UNCOND_ID
 from controlvar_tpu_torch.device import DeviceLike, resolve_device, tree_to
 from controlvar_tpu_torch.models import transformer as tfm
-from controlvar_tpu_torch.models.control_var import ControlVARModel
+from controlvar_tpu_torch.models.control_var import ControlVARModel, tp_draw
 from controlvar_tpu_torch.models.masks import attn_mask_for_config
 from controlvar_tpu_torch.models.vqvae import VQVAE
 from controlvar_tpu_torch.ops.sampling import (METHODS, gumbel_softmax,
@@ -90,10 +99,19 @@ class _SamplerBase:
     def _setup_caches(self):
         """The cache-mode guards. Where the JAX package quietly ignores
         `CONTROLVAR_KV_FUSED=1` (the segmented mode, in-place decode, a flat
-        layout), `kv_fused` raises."""
+        layout), `kv_fused` raises. A tensor-parallel model takes the
+        stacked cache of the paired layout alone."""
         cfg = self.model.cfg
         self.device = resolve_device(self.device)
         self.quant = self.vqvae.quantizer
+        self._tp = getattr(self.model, "tp", None)  # a VARModel refuses a model axis
+        if self._tp is not None:
+            if (self.cache_mode != "stacked" or self.inplace_decode or self.kv_fused
+                    or tfm.kv_layout(cfg) != "paired"):
+                raise NotImplementedError(
+                    "tensor parallelism takes the stacked cache of the paired layout: the "
+                    "segmented cache (kv_window), in-place decode and the flat and fused "
+                    "layouts are not ported to it yet")
         if self.sampler not in METHODS:
             raise ValueError(f"unknown sampler {self.sampler!r}; use one of {METHODS}")
         if self.cache_mode not in ("stacked", "seg"):
@@ -128,11 +146,26 @@ class _SamplerBase:
                                 self.compute_dtype)
         return out
 
-    def _init_caches(self, rows: int):
+    def _init_caches(self, rows: int, params=None):
+        """The caches of `rows` rows, for the heads of params' blocks (a
+        tensor-parallel shard's) or of the config."""
         if self.cache_mode == "seg":
             return (), ()
-        return tfm.init_kv_cache(self.model.cfg, rows, self.model.cfg.seq_len,
-                                 self.compute_dtype, self.device, fused=self.kv_fused)
+        cfg = self.model.cfg
+        heads = None if params is None else tfm.local_heads(params["blocks"], cfg)
+        return tfm.init_kv_cache(cfg, rows, cfg.seq_len, self.compute_dtype, self.device,
+                                 fused=self.kv_fused, heads=heads)
+
+    def _draw(self, logits, generator):
+        """The ids of one scale's draw (model rank 0's under tensor
+        parallelism)."""
+        return tp_draw(sample_top_k_top_p(logits, self.top_k, self.top_p, generator,
+                                          method=self.sampler), self._tp)
+
+    def _head(self, params, x, cond, weights):
+        """The CFG-combined logits of the vocabulary."""
+        cfg = self.model.cfg
+        return tfm.head_logits_cfg(params, x, cond, cfg, weights, self._tp)[:, :, : cfg.vocab_size]
 
     def _blocks(self, params, si, next_map, cond, cache_k, cache_v):
         """The blocks over scale si's input map in the cache mode; returns
@@ -149,7 +182,7 @@ class _SamplerBase:
             return x, cache_k + (k_new,), cache_v + (v_new,)
         return tfm.blocks_decode(params["blocks"], x, cond, cfg, cache_k, cache_v, cur,
                                  mask_slice=mask_slice, inplace=self.inplace_decode,
-                                 shared_lin=params.get("shared_ada_lin"))
+                                 shared_lin=params.get("shared_ada_lin"), tp=self._tp)
 
     def _decode(self, vq_params, fh):
         return (self.vqvae.fhat_to_img(vq_params, fh, self.compute_dtype) + 1.0) * 0.5
@@ -215,9 +248,8 @@ class StepwiseJointSampler(_SamplerBase):
         z = self.vqvae.cfg.z_channels
         x, cache_k, cache_v = self._blocks(params, si, next_map, cond, cache_k, cache_v)
         t = self.cfg_scale * si / (SN - 1)
-        logits = tfm.head_logits_cfg(params, x, cond, cfg, (1.0 + t, -t))[:, :, : cfg.vocab_size]
-        ids = sample_top_k_top_p(logits, self.top_k, self.top_p, generator,
-                                 method=self.sampler)
+        logits = self._head(params, x, cond, (1.0 + t, -t))
+        ids = self._draw(logits, generator)
         l = pn * pn
         # the image tokens sit at [l + num_sp, 2l + num_sp)
         num_sp = 1 if (cfg.separator and si > 0) else 0
@@ -260,7 +292,7 @@ class StepwiseJointSampler(_SamplerBase):
         z = self.vqvae.cfg.z_channels
         cond, next_map = self._prologue(params, labels.to(self.device),
                                         cond_type.to(self.device))
-        cache_k, cache_v = self._init_caches(2 * B)
+        cache_k, cache_v = self._init_caches(2 * B, params)
         fh_c = torch.zeros(B, pns[-1], pns[-1], z, device=self.device)
         fh_i = torch.zeros(B, pns[-1], pns[-1], z, device=self.device)
         for si in range(len(pns)):
@@ -340,15 +372,14 @@ class StepwiseCondSampler(_SamplerBase):
         # multi-scale CFG combined before the head matmul (weights sum to 1)
         w = ((1.0 + t1, t2 - t1, t3 - t2, -t3) if R == 4
              else (1.0 + t1, t2 - t1, -t2))
-        combined = tfm.head_logits_cfg(params, x, cond, cfg, w)[:, :, : cfg.vocab_size]
+        combined = self._head(params, x, cond, w)
         l = pn * pn
         # draw [forced group's free half | uncond group's both halves]
         if self.force == "control":
             sample_in = torch.cat([combined[:, l:], combined], dim=1)
         else:
             sample_in = torch.cat([combined[:, :l], combined], dim=1)
-        out = sample_top_k_top_p(sample_in, self.top_k, self.top_p, generator,
-                                 method=self.sampler)
+        out = self._draw(sample_in, generator)
         a_sampled, b_ids = out[:, :l], out[:, l:]
         if self.force == "control":
             ids_a = torch.cat([forced, a_sampled], dim=1)
@@ -402,7 +433,7 @@ class StepwiseCondSampler(_SamplerBase):
         labels = labels.to(self.device)
         cond_type = cond_type.to(self.device)
         cond, next_map = self._prologue(params, labels, cond_type)
-        cache_k, cache_v = self._init_caches(self.repeat_num * B)
+        cache_k, cache_v = self._init_caches(self.repeat_num * B, params)
         fh_c = torch.zeros(2 * B, pns[-1], pns[-1], z, device=self.device)
         fh_i = torch.zeros(2 * B, pns[-1], pns[-1], z, device=self.device)
         for si in range(cfg.num_scales):
@@ -449,8 +480,7 @@ class StepwiseVARSampler(_SamplerBase):
         x, cache_k, cache_v = self._blocks(params, si, next_map, cond, cache_k, cache_v)
         t = self.cfg_scale * si / (SN - 1)
         logits = tfm.head_logits_cfg(params, x, cond, cfg, (1.0 + t, -t))
-        ids = sample_top_k_top_p(logits, self.top_k, self.top_p, generator,
-                                 method=self.sampler)
+        ids = self._draw(logits, generator)
         if self.more_smooth:  # gumbel soft embeddings
             factor, tau = smooth_temperature(si, SN)
             soft = gumbel_softmax(logits * factor, tau, generator=generator)
@@ -478,7 +508,7 @@ class StepwiseVARSampler(_SamplerBase):
         cond = params["class_emb"][torch.cat([labels, torch.full_like(labels, cfg.num_classes)])]
         next_map = (cond[:, None, :] + params["pos_start"]
                     + self.model._lvl_pos(params)[:, : cfg.first_l])
-        cache_k, cache_v = self._init_caches(2 * B)
+        cache_k, cache_v = self._init_caches(2 * B, params)
         f_hat = torch.zeros(B, pns[-1], pns[-1], self.vqvae.cfg.z_channels, device=self.device)
         for si in range(len(pns)):
             next_map, cache_k, cache_v, f_hat = self._step(

@@ -12,6 +12,14 @@ follows every segment after scale 0 with a learned separator embedding
 control/image type embedding to every token, `shared_aln` makes the AdaLN
 modulations from one model-level linear, and `bidirectional` trains both
 stream orders (`mask_first`).
+
+With a mesh whose model axis is above 1 (`parallel/mesh.py`), the model is
+tensor parallel: its params are this rank's shard
+(`parallel/tensor.py:shard_params` of `init_params`), the blocks and the
+head run Megatron's layout (`models/transformer.py`), and every draw is
+model rank 0's, broadcast over the model group. The options separator,
+type_pos, shared_aln and bidirectional, and separate decoding, are not
+ported to tensor parallelism yet: they raise NotImplementedError there.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ from controlvar_tpu_torch.ops.attention import tile_flags
 from controlvar_tpu_torch.ops.resize import resize_area
 from controlvar_tpu_torch.ops.sampling import (gumbel_softmax, sample_top_k_top_p,
                                                smooth_temperature)
+from controlvar_tpu_torch.parallel.mesh import check_model_axis, tp_of
+from controlvar_tpu_torch.parallel.tensor import broadcast_from_model_root
 
 Params = Dict
 
@@ -42,12 +52,32 @@ def separator_mapping(mask_first: bool) -> List[int]:
     return [i + 1 if i % 2 == 0 else i - 1 for i in range(18)]
 
 
-class ControlVARModel:
-    """Model entry point. Runs on `cuda` unless device="cpu" is passed."""
+_TP_UNPORTED = ("separator", "type_pos", "shared_aln", "bidirectional")
 
-    def __init__(self, cfg: ControlVARConfig, device: DeviceLike = None):
+
+def tp_draw(ids: torch.Tensor, tp) -> torch.Tensor:
+    """A draw made on every rank of a tensor-parallel model group, as its
+    model rank 0 made it (in place; ids itself without tp): the ranks cannot
+    diverge, whatever their own draws gave."""
+    return ids if tp is None else broadcast_from_model_root(ids, tp)
+
+
+class ControlVARModel:
+    """Model entry point. Runs on `cuda` unless device="cpu" is passed.
+    mesh: the process layout (`parallel.mesh.make_mesh`); a model axis above
+    1 makes the model tensor parallel (module docstring)."""
+
+    def __init__(self, cfg: ControlVARConfig, device: DeviceLike = None, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.tp = tp_of(mesh)
+        if self.tp is not None:
+            check_model_axis(cfg, mesh.model)
+            on = [o for o in _TP_UNPORTED if getattr(cfg, o)]
+            if on:
+                raise NotImplementedError(f"tensor parallelism (model={mesh.model}) is not "
+                                          f"ported for {', '.join(on)} models yet")
         lvl = level_index_1L(cfg.patch_nums, cfg.mask_factor, cfg.separator)
         # the (L,) scale index of every token, copied to the device once
         self._level_index = torch.from_numpy(lvl).long().to(self.device)
@@ -188,8 +218,8 @@ class ControlVARModel:
                                self._attn_mask.to(x.device),
                                flags=self._tile_flags.to(x.device), train=train,
                                generator=generator, remat=remat,
-                               shared_lin=params.get("shared_ada_lin"))
-        return tfm.head_logits(params, x, cond, cfg)
+                               shared_lin=params.get("shared_ada_lin"), tp=self.tp)
+        return tfm.head_logits(params, x, cond, cfg, self.tp)
 
     # ---- joint sampling ------------------------------------------------------
 
@@ -223,9 +253,9 @@ class ControlVARModel:
         first l drawn tokens (gumbel-softmax ones with more_smooth)."""
         SN = self.cfg.num_scales
         t = cfg_scale * si / (SN - 1)
-        logits = tfm.head_logits_cfg(params, x, cond, self.cfg, (1.0 + t, -t))
+        logits = tfm.head_logits_cfg(params, x, cond, self.cfg, (1.0 + t, -t), self.tp)
         logits = logits[:, :, : self.cfg.vocab_size]
-        ids = sample_top_k_top_p(logits, top_k, top_p, generator)
+        ids = tp_draw(sample_top_k_top_p(logits, top_k, top_p, generator), self.tp)
         if more_smooth:
             factor, tau = smooth_temperature(si, SN)
             soft = gumbel_softmax(logits[:, :l] * factor, tau, generator=generator)
@@ -250,7 +280,8 @@ class ControlVARModel:
         lvl_pos = self._lvl_pos(params)
         next_map = cond[:, None, :] + params["pos_start"] + lvl_pos[:, : cfg.first_l]
         cache_k, cache_v = tfm.init_kv_cache(cfg, 2 * B, cfg.seq_len, compute_dtype,
-                                             self.device)
+                                             self.device,
+                                             heads=tfm.local_heads(params["blocks"], cfg))
         fh = torch.zeros(B, pns[-1], pns[-1], z, device=self.device)
         for si, pn in enumerate(pns):
             lo, hi = cfg.begin_ends[si]
@@ -258,7 +289,8 @@ class ControlVARModel:
             x, cache_k, cache_v = tfm.blocks_decode(params["blocks"], next_map.to(compute_dtype),
                                                     cond, cfg, cache_k, cache_v, lo,
                                                     mask_slice=mask_slice,
-                                                    shared_lin=params.get("shared_ada_lin"))
+                                                    shared_lin=params.get("shared_ada_lin"),
+                                                    tp=self.tp)
             h = self._draw(params, vq_params, vqvae, x, cond, si, cfg_scale, top_k,
                            top_p, more_smooth, generator, pn * pn)
             fh, nxt = vqvae.quantizer.next_ar_input(vq_params["quantize"], si, fh,
@@ -290,6 +322,9 @@ class ControlVARModel:
         id is dropped. Returns the (control, image) canvases as
         `sample_joint_cfg` does."""
         cfg = self.cfg
+        if self.tp is not None:
+            raise NotImplementedError("separate decoding is not ported to tensor parallelism "
+                                      "yet")
         if not cfg.separate_decoding or cfg.indep:
             raise ValueError("sample_joint_separate needs separate_decoding without indep")
         if cfg.mask_factor != 2 or not cfg.multi_cond:
@@ -393,7 +428,8 @@ class ControlVARModel:
         next_map = (torch.stack([ct_tok, cond], dim=1) + params["pos_start"]
                     + lvl_pos[:, : cfg.first_l])
         cache_k, cache_v = tfm.init_kv_cache(cfg, R * B, cfg.seq_len, compute_dtype,
-                                             self.device)
+                                             self.device,
+                                             heads=tfm.local_heads(params["blocks"], cfg))
         fh_c = torch.zeros(2 * B, pns[-1], pns[-1], z, device=self.device)
         fh_i = torch.zeros_like(fh_c)
         for si, pn in enumerate(pns):
@@ -403,17 +439,19 @@ class ControlVARModel:
             x, cache_k, cache_v = tfm.blocks_decode(params["blocks"], next_map.to(compute_dtype),
                                                     cond, cfg, cache_k, cache_v, lo,
                                                     mask_slice=mask_slice,
-                                                    shared_lin=params.get("shared_ada_lin"))
+                                                    shared_lin=params.get("shared_ada_lin"),
+                                                    tp=self.tp)
             t1, t2, t3 = (c * si / (SN - 1) for c in cfg_scales)
             w = ((1.0 + t1, t2 - t1, t3 - t2, -t3) if R == 4 else (1.0 + t1, t2 - t1, -t2))
-            combined = tfm.head_logits_cfg(params, x, cond, cfg, w)[:, :, : cfg.vocab_size]
+            combined = tfm.head_logits_cfg(params, x, cond, cfg, w,
+                                           self.tp)[:, :, : cfg.vocab_size]
             # draw only the columns that are used: the forced group's free
             # half (or both halves) and the uncond group's both halves
             parts = ([] if c_mask is not None else [combined[:, :l]]) + (
                 [] if c_img is not None else [combined[:, l:]])
             na = sum(p.shape[1] for p in parts)
-            out = sample_top_k_top_p(torch.cat(parts + [combined], dim=1), top_k, top_p,
-                                     generator)
+            out = tp_draw(sample_top_k_top_p(torch.cat(parts + [combined], dim=1), top_k,
+                                             top_p, generator), self.tp)
             a_sampled, b_ids = out[:, :na], out[:, na:]
             a_ctrl = c_mask[si].to(out) if c_mask is not None else a_sampled[:, :l]
             a_img = c_img[si].to(out) if c_img is not None else a_sampled[:, na - l:]

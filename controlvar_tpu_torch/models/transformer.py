@@ -32,6 +32,16 @@ Stacked params (leading dim = depth), dense kernels as (in, out):
 With `shared_aln`, ada_gss (D, 6, C) replaces ada_lin: every layer adds its
 own ada_gss to one modulation made by the model-level `shared_ada_lin`
 ({kernel (C, 6C), bias (6C,)}), which the callers pass as `shared_lin`.
+
+Tensor parallelism: given `tp`, a mesh whose model axis splits the model
+(`parallel/mesh.py`), the params are this rank's shard
+(`parallel/tensor.py:shard_params`) and the functions run Megatron's
+layout: the local head count is read from the shard (qkv_kernel's width),
+the column-parallel inputs (qkv, fc1, ada_lin, head) pass `copy_to_model`,
+the row-parallel outputs (proj, fc2) are summed over the model group before
+their replicated bias is added once, and the AdaLN modulations and the
+logits are gathered whole. A leaf kept whole (heads that do not divide)
+runs as without tp. tp=None is the single-device path, unchanged.
 """
 from __future__ import annotations
 
@@ -48,6 +58,8 @@ from controlvar_tpu_torch.config import VARConfig
 from controlvar_tpu_torch.ops.attention import (decode_attention, decode_attention_flat,
                                                 decode_attention_fused, decode_attention_inplace,
                                                 decode_attention_prefix, flash_mha)
+from controlvar_tpu_torch.parallel.tensor import (copy_to_model, gather_from_model,
+                                                  reduce_from_model)
 
 Params = Dict
 
@@ -117,10 +129,24 @@ def _layer(bp: Params, li: int) -> Params:
     return {k: (_layer(v, li) if isinstance(v, dict) else v[li]) for k, v in bp.items()}
 
 
-def _qkv(lp: Params, x: torch.Tensor, cfg: VARConfig):
-    """x (B, L, C) -> q, k, v each (B, H, L, hd); cos-attn normalization applied."""
+def local_heads(bp: Params, cfg: VARConfig) -> int:
+    """The head count of a (stacked or layer) block tree: cfg.num_heads, or
+    a tensor-parallel shard's share of them."""
+    return bp["qkv_kernel"].shape[-1] // (3 * cfg.head_dim)
+
+
+def _split(tp, local: int, whole: int):
+    """tp where a leaf of this width is a shard of the whole one, else None."""
+    return tp if tp is not None and local < whole else None
+
+
+def _qkv(lp: Params, x: torch.Tensor, cfg: VARConfig, tp=None):
+    """x (B, L, C) -> q, k, v each (B, H, L, hd), H the shard's heads;
+    cos-attn normalization applied."""
     B, L, C = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
+    H, hd = local_heads(lp, cfg), cfg.head_dim
+    if _split(tp, H, cfg.num_heads) is not None:
+        x = copy_to_model(x, tp)
     bias = torch.cat([lp["q_bias"], torch.zeros_like(lp["q_bias"]), lp["v_bias"]], dim=-1)
     qkv = x @ lp["qkv_kernel"].to(x.dtype) + bias.to(x.dtype)
     q, k, v = qkv.reshape(B, L, 3, H, hd).permute(2, 0, 3, 1, 4)  # (3, B, H, L, hd)
@@ -133,26 +159,44 @@ def _qkv(lp: Params, x: torch.Tensor, cfg: VARConfig):
     return q, k, v
 
 
-def _ffn(lp: Params, x: torch.Tensor) -> torch.Tensor:
+def _row_parallel_out(y: torch.Tensor, bias: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel product's output y plus its bias: with tp, the fp32
+    sum of the model group's partial outputs, the replicated bias added
+    once after the sum."""
+    if tp is None:
+        return y + bias.to(y.dtype)
+    return reduce_from_model(y, tp) + bias.float()
+
+
+def _ffn(lp: Params, x: torch.Tensor, cfg: VARConfig, tp=None) -> torch.Tensor:
+    """The MLP; fp32 out of a tensor-parallel shard, x's dtype otherwise."""
+    tp = _split(tp, lp["fc1"]["kernel"].shape[-1], round(cfg.embed_dim * cfg.mlp_ratio))
+    if tp is not None:
+        x = copy_to_model(x, tp)
     h = x @ lp["fc1"]["kernel"].to(x.dtype) + lp["fc1"]["bias"].to(x.dtype)
     h = F.gelu(h, approximate="tanh")
-    return h @ lp["fc2"]["kernel"].to(x.dtype) + lp["fc2"]["bias"].to(x.dtype)
+    return _row_parallel_out(h @ lp["fc2"]["kernel"].to(x.dtype), lp["fc2"]["bias"], tp)
 
 
 def _ada_all_layers(bp: Params, cond: torch.Tensor, cfg: VARConfig,
-                    shared_lin: Optional[Params] = None) -> torch.Tensor:
+                    shared_lin: Optional[Params] = None, tp=None) -> torch.Tensor:
     """(depth, B, 6, C) fp32 AdaLN modulations of all layers from the
     condition cond (B, C): one batched matmul of SiLU(cond), in the kernel's
-    dtype (bf16 after prepare_params), then fp32; with shared_aln, each
-    layer's ada_gss added to the one fp32 modulation that the model-level
-    shared_lin makes."""
+    dtype (bf16 after prepare_params), then fp32 (a shard's columns gathered
+    whole); with shared_aln, each layer's ada_gss added to the one fp32
+    modulation that the model-level shared_lin makes."""
     cond_act = F.silu(cond.float())
     if cfg.shared_aln:
         shared = cond_act @ shared_lin["kernel"] + shared_lin["bias"]
         return bp["ada_gss"][:, None] + shared.reshape(1, -1, 6, cfg.embed_dim)
     k_ada = bp["ada_lin"]["kernel"]
+    tp = _split(tp, k_ada.shape[-1], 6 * cfg.embed_dim)
+    if tp is not None:
+        cond_act = copy_to_model(cond_act, tp)
     ada = torch.einsum("bc,dce->dbe", cond_act.to(k_ada.dtype), k_ada).float()
     ada = ada + bp["ada_lin"]["bias"].float()[:, None]
+    if tp is not None:
+        ada = gather_from_model(ada, tp)
     return ada.reshape(cfg.depth, -1, 6, cfg.embed_dim)
 
 
@@ -162,39 +206,40 @@ def _ada_parts(ada: torch.Tensor, cfg: VARConfig):
     return tuple(a.reshape(-1, 1, cfg.embed_dim) for a in ada.unbind(dim=1))
 
 
-def _attn_in(lp: Params, h: torch.Tensor, ada: torch.Tensor, cfg: VARConfig):
+def _attn_in(lp: Params, h: torch.Tensor, ada: torch.Tensor, cfg: VARConfig, tp=None):
     """A layer's attention inputs: AdaLN-modulated pre-norm -> fused QKV."""
     _, _, s1, _, sh1, _ = _ada_parts(ada, cfg)
     hn = layer_norm(h, cfg.norm_eps)
     hn = (hn.float() * (s1 + 1.0) + sh1).to(h.dtype)
-    return _qkv(lp, hn, cfg)
+    return _qkv(lp, hn, cfg, tp)
 
 
 def _block_out(lp: Params, h: torch.Tensor, o: torch.Tensor, ada: torch.Tensor,
-               cfg: VARConfig, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+               cfg: VARConfig, keep: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
     """A layer after its attention output o (B, H, L, hd): projection ->
     gamma-gated residual -> modulated FFN residual. keep: optional (2, B)
     drop-path factors (mask / keep rate) of the attention and FFN branches."""
     g1, g2, _, s2, _, sh2 = _ada_parts(ada, cfg)
     B, H, Lq, hd = o.shape
     o = o.transpose(1, 2).reshape(B, Lq, H * hd)
-    o = o @ lp["proj"]["kernel"].to(o.dtype) + lp["proj"]["bias"].to(o.dtype)
+    o = _row_parallel_out(o @ lp["proj"]["kernel"].to(o.dtype), lp["proj"]["bias"],
+                          _split(tp, H, cfg.num_heads))
     o = (o.float() * g1).to(h.dtype)
     if keep is not None:
         o = o * keep[0].reshape(B, 1, 1)
     h = h + o
     hn = layer_norm(h, cfg.norm_eps)
     hn = (hn.float() * (s2 + 1.0) + sh2).to(h.dtype)
-    f = (_ffn(lp, hn).float() * g2).to(h.dtype)
+    f = (_ffn(lp, hn, cfg, tp).float() * g2).to(h.dtype)
     if keep is not None:
         f = f * keep[1].reshape(B, 1, 1)
     return h + f
 
 
 def _block_body(lp: Params, h: torch.Tensor, ada: torch.Tensor, cfg: VARConfig,
-                attn_fn, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                attn_fn, keep: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
     """One layer: `_attn_in`, attention, `_block_out`."""
-    return _block_out(lp, h, attn_fn(*_attn_in(lp, h, ada, cfg)), ada, cfg, keep)
+    return _block_out(lp, h, attn_fn(*_attn_in(lp, h, ada, cfg, tp)), ada, cfg, keep, tp)
 
 
 def _drop_path(generator: torch.Generator, rates, batch: int,
@@ -248,13 +293,15 @@ _CKPT = dict(use_reentrant=False, preserve_rng_state=False)  # no draws inside a
 def blocks_forward(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfig,
                    mask: torch.Tensor, *, flags: Optional[torch.Tensor] = None,
                    train: bool = False, generator: Optional[torch.Generator] = None,
-                   remat: str = "full", shared_lin: Optional[Params] = None) -> torch.Tensor:
+                   remat: str = "full", shared_lin: Optional[Params] = None,
+                   tp=None) -> torch.Tensor:
     """Full-sequence forward through all blocks, attention through
     `flash_mha` (K3/K4 on the GPU).
 
     x: (B, L, C) residual stream (bf16 on the GPU); cond: (B, C) fp32;
     mask: (L, L) bool on x's device, flags its `tile_flags`; shared_lin:
-    the model's shared_ada_lin under shared_aln. With train and
+    the model's shared_ada_lin under shared_aln; tp: the mesh of a
+    tensor-parallel shard (module docstring). With train and
     a generator, drop path is drawn from the generator. With train, each
     layer is recomputed in the backward under the remat policy (the JAX
     package's `_remat_wrap`; it changes what is saved, never the math):
@@ -269,7 +316,7 @@ def blocks_forward(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConf
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat={remat!r}: want one of {'|'.join(REMAT_POLICIES)}")
     D, B = cfg.depth, x.shape[0]
-    ada_all = _ada_all_layers(bp, cond, cfg, shared_lin)
+    ada_all = _ada_all_layers(bp, cond, cfg, shared_lin, tp)
     keep = None
     if train and generator is not None and cfg.drop_path_rate > 0:
         rates = np.linspace(0.0, cfg.drop_path_rate, D, dtype=np.float32)
@@ -279,16 +326,16 @@ def blocks_forward(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConf
     for li, lp in enumerate(_unbind_layers(bp, D)):
         k_li = None if keep is None else keep[li]
         if not train:
-            x = _block_body(lp, x, ada_all[li], cfg, attn_fn, k_li)
+            x = _block_body(lp, x, ada_all[li], cfg, attn_fn, k_li, tp)
         elif remat == "full":
-            x = checkpoint(_block_body, lp, x, ada_all[li], cfg, attn_fn, k_li, **_CKPT)
+            x = checkpoint(_block_body, lp, x, ada_all[li], cfg, attn_fn, k_li, tp, **_CKPT)
         elif remat == "dots":
-            x = checkpoint(_block_body, lp, x, ada_all[li], cfg, attn_fn, k_li,
+            x = checkpoint(_block_body, lp, x, ada_all[li], cfg, attn_fn, k_li, tp,
                            context_fn=_dots_context, **_CKPT)
         else:
-            q, k, v = checkpoint(_attn_in, lp, x, ada_all[li], cfg,
+            q, k, v = checkpoint(_attn_in, lp, x, ada_all[li], cfg, tp,
                                  context_fn=_dots_context, **_CKPT)
-            x = checkpoint(_block_out, lp, x, attn_fn(q, k, v), ada_all[li], cfg, k_li,
+            x = checkpoint(_block_out, lp, x, attn_fn(q, k, v), ada_all[li], cfg, k_li, tp,
                            context_fn=_dots_context, **_CKPT)
     return x
 
@@ -308,15 +355,17 @@ def kv_fused(cfg: VARConfig, requested: bool) -> bool:
 
 
 def init_kv_cache(cfg: VARConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-                  device="cpu", fused: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                  device="cpu", fused: bool = False,
+                  heads: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zeroed K and V caches in the layout `blocks_decode` reads, one head a
-    row (the JAX package pairs two heads a row for the TPU's 128 lanes):
+    row (the JAX package pairs two heads a row for the TPU's 128 lanes), for
+    `heads` heads (cfg.num_heads; a tensor-parallel shard's `local_heads`):
       paired: K and V, each (depth, B, H, max_len, hd);
       flat:   K^T and V^T, each (depth, B, H, hd, L), L = max_len rounded up
               to a multiple of 8 so that every row starts 16-byte aligned;
       fused (`kv_fused(cfg, fused)`): ONE (depth, B, H, max_len, 2 hd)
               buffer of rows [k_h | v_h] and an empty placeholder for V."""
-    D, H, hd = cfg.depth, cfg.num_heads, cfg.head_dim
+    D, H, hd = cfg.depth, heads or cfg.num_heads, cfg.head_dim
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
     if kv_fused(cfg, fused):
         return zeros(D, batch, H, max_len, 2 * hd), zeros(0)
@@ -329,13 +378,14 @@ def init_kv_cache(cfg: VARConfig, batch: int, max_len: int, dtype=torch.bfloat16
 def blocks_decode(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfig,
                   cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
                   mask_slice: Optional[torch.Tensor] = None, inplace: bool = False,
-                  shared_lin: Optional[Params] = None
+                  shared_lin: Optional[Params] = None, tp=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One KV-cached decode step over all blocks.
 
     x: (B, l, C) tokens of the current scale; pos: first cache row they take.
     mask_slice: optional (l, pos + l) bool mask; None = attend to everything
-    cached. shared_lin: the model's shared_ada_lin under shared_aln. The
+    cached. shared_lin: the model's shared_ada_lin under shared_aln; tp: the
+    mesh of a tensor-parallel shard, whose caches hold its heads. The
     caches (`init_kv_cache`) are updated in place and returned.
     Each layer writes its fresh rows, then attends over rows [0, pos + l),
     by the caches' layout: the fused buffer (an empty V placeholder) through
@@ -347,7 +397,7 @@ def blocks_decode(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfi
     """
     l = x.shape[1]
     cur = pos + l
-    ada_all = _ada_all_layers(bp, cond, cfg, shared_lin)
+    ada_all = _ada_all_layers(bp, cond, cfg, shared_lin, tp)
     scale = 1.0 if cfg.cos_attn else cfg.attn_scale
     fused = cache_v.dim() == 1
     flat = not fused and kv_layout(cfg) == "flat"
@@ -369,7 +419,7 @@ def blocks_decode(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConfi
             cache_v[li, :, :, pos:cur] = v
             return decode_attention(q, cache_k, cache_v, li, cur, scale, mask_slice)
 
-        x = _block_body(_layer(bp, li), x, ada_all[li], cfg, attn_fn)
+        x = _block_body(_layer(bp, li), x, ada_all[li], cfg, attn_fn, tp=tp)
     return x, cache_k, cache_v
 
 
@@ -412,19 +462,30 @@ def blocks_decode_seg(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARC
     return x, k_seg, v_seg
 
 
+def _vocab_projection(p: Params, h: torch.Tensor, cfg: VARConfig, tp) -> torch.Tensor:
+    """h @ head + bias in fp32; a shard's vocabulary columns gathered whole."""
+    if tp is not None:
+        tp = _split(tp, p["head"]["kernel"].shape[-1], cfg.head_vocab)
+    if tp is None:
+        return h @ p["head"]["kernel"] + p["head"]["bias"]
+    return gather_from_model(copy_to_model(h, tp) @ p["head"]["kernel"] + p["head"]["bias"], tp)
+
+
 def head_logits(p: Params, x: torch.Tensor, cond: torch.Tensor,
-                cfg: VARConfig) -> torch.Tensor:
-    """AdaLN-modulated LayerNorm, then the vocab projection, in fp32."""
+                cfg: VARConfig, tp=None) -> torch.Tensor:
+    """AdaLN-modulated LayerNorm, then the vocab projection, in fp32 (whole
+    logits on every rank of a tensor-parallel shard tp)."""
     ada = F.silu(cond.float()) @ p["head_nm"]["ada_lin"]["kernel"] + p["head_nm"]["ada_lin"]["bias"]
     scale, shift = ada.reshape(-1, 2, cfg.embed_dim).split(1, dim=1)
     h = layer_norm(x.float(), cfg.norm_eps)
     h = h * (scale + 1.0) + shift
-    return h @ p["head"]["kernel"] + p["head"]["bias"]
+    return _vocab_projection(p, h, cfg, tp)
 
 
 def head_logits_cfg(p: Params, x: torch.Tensor, cond: torch.Tensor,
-                    cfg: VARConfig, weights) -> torch.Tensor:
-    """CFG-combined head logits in one reduced matmul, fp32.
+                    cfg: VARConfig, weights, tp=None) -> torch.Tensor:
+    """CFG-combined head logits in one reduced matmul, fp32 (whole logits
+    on every rank of a tensor-parallel shard tp).
 
     x: (R*B, seg, C) final hidden states of the R CFG branches; weights: R
     floats summing to 1. The vocab projection is linear, so the branches are
@@ -440,4 +501,4 @@ def head_logits_cfg(p: Params, x: torch.Tensor, cond: torch.Tensor,
     # python-float weights: no host->device copy (which would wait for the
     # GPU queue) in the middle of a scale step
     hc = sum(w * hr for w, hr in zip(weights, h.split(B)))
-    return hc @ p["head"]["kernel"] + p["head"]["bias"]
+    return _vocab_projection(p, hc, cfg, tp)

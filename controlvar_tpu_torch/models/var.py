@@ -27,10 +27,16 @@ Params = Dict
 
 
 class VARModel:
-    """Model entry point. Runs on `cuda` unless device="cpu" is passed."""
+    """Model entry point. Runs on `cuda` unless device="cpu" is passed.
+    mesh: the process layout; tensor parallelism (a model axis above 1) is
+    not ported to plain VAR yet and raises NotImplementedError."""
 
-    def __init__(self, cfg: VARConfig, device: DeviceLike = None):
+    def __init__(self, cfg: VARConfig, device: DeviceLike = None, mesh=None):
+        if mesh is not None and mesh.model > 1:
+            raise NotImplementedError(f"tensor parallelism (model={mesh.model}) is not ported "
+                                      "to VARModel and VARTrainStep yet")
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         # the (L,) scale index of every token, copied to the device once
         self._level_index = torch.from_numpy(level_index_1L(cfg.patch_nums)).long().to(

@@ -1,12 +1,14 @@
-"""Multi-process data parallelism on `torch.distributed`.
+"""Multi-process parallelism on `torch.distributed`.
 
 The port of `controlvar_tpu/parallel/distributed.py`. One process per
 device: `initialize()` joins the process group from the same environment
 variables as the JAX package (COORDINATOR_ADDRESS, NUM_PROCESSES,
-PROCESS_ID), each rank's loader reads its own shard (`shard_id=
-process_index()`, `num_shards=process_count()`), and the train steps
-average every gradient across ranks with `average_gradients` before the
-clip. The port's steps take parameter trees, not `nn.Module`s, so
+PROCESS_ID). Under data parallelism each rank's loader reads its own shard
+and the train steps average every gradient over the ranks with
+`average_gradients` before the clip; under tensor parallelism
+(`parallel/mesh.py`, `parallel/tensor.py`) the loader shard is the rank's
+data index and the average runs over its data group only. The port's steps
+take parameter trees, not `nn.Module`s, so
 `torch.nn.parallel.DistributedDataParallel` does not apply. Every helper
 here is a no-op (or the single-process answer) when no group is
 initialized.
@@ -29,14 +31,19 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     device: DeviceLike = None,
+    backend: Optional[str] = None,
 ) -> None:
     """Join the process group. No-op for a single process (no address and
     no process count given or in the environment).
 
-    The backend is NCCL for the GPU (the default device) and gloo for
-    device="cpu". The coordinator address is host:port (or tcp://host:port)
-    of rank 0; on a GPU machine each rank takes the device of its local
-    rank, `process_id % torch.cuda.device_count()`.
+    The backend is `backend`, else the DIST_BACKEND environment variable,
+    else NCCL for the GPU (the default device) and gloo for device="cpu".
+    Ranks that share one card need gloo: NCCL refuses two ranks on one
+    device, and gloo takes CUDA tensors for the all_reduce and broadcast
+    that the port's collectives are made of. The coordinator address is
+    host:port (or tcp://host:port) of rank 0; on a GPU machine each rank
+    takes the device of its local rank, `process_id %
+    torch.cuda.device_count()`.
     """
     coord = coordinator_address or os.environ.get("COORDINATOR_ADDRESS")
     nproc = num_processes if num_processes is not None else (
@@ -54,8 +61,10 @@ def initialize(
     device = resolve_device(device)
     if device.type == "cuda":
         torch.cuda.set_device(pid % torch.cuda.device_count())
+    backend = backend or os.environ.get("DIST_BACKEND") or (
+        "nccl" if device.type == "cuda" else "gloo")
     init = coord if "://" in coord else f"tcp://{coord}"
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=init,
+    dist.init_process_group(backend, init_method=init,
                             world_size=nproc, rank=pid,
                             timeout=datetime.timedelta(minutes=10))
 
@@ -96,29 +105,37 @@ def form_global_batch(device, batch: dict) -> dict:
     return to_device(batch, device)
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of `t` over the ranks (a new tensor; `t` itself without a
-    group)."""
+def group_size(group=None) -> int:
+    """The number of ranks of `group` (None: the whole world); 1 without a
+    process group."""
+    return dist.get_world_size(group) if _initialized() else 1
+
+
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of `t` over the ranks of `group` (None: every rank; a new
+    tensor; `t` itself without a process group)."""
     if not _initialized():
         return t
     out = t.clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=group)
     return out
 
 
-def average_gradients(params: Iterable[torch.Tensor]) -> None:
-    """Replace every `.grad` of `params` by its mean over the ranks, in
+def average_gradients(params: Iterable[torch.Tensor], group=None) -> None:
+    """Replace every `.grad` of `params` by its mean over the ranks of
+    `group` (None: every rank; under tensor parallelism the data group), in
     place, through one all-reduce of their concatenation (so every rank ends
-    with the same bits). A no-op without a process group; inside one, even
-    of one rank, the all-reduce runs."""
-    if not _initialized():
+    with the same bits). A no-op without a process group and over a
+    subgroup of one rank; over the whole world, even of one rank, the
+    all-reduce runs."""
+    if not _initialized() or (group is not None and dist.get_world_size(group) == 1):
         return
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
-    flat.div_(dist.get_world_size())
+    dist.all_reduce(flat, group=group)
+    flat.div_(dist.get_world_size(group))
     offset = 0
     for g in grads:
         g.copy_(flat[offset: offset + g.numel()].view_as(g))

@@ -62,3 +62,11 @@ def decay_groups(params: Dict) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     for name, leaf in named_leaves(params):
         (decay if _decays(name, leaf) else no_decay).append(leaf)
     return decay, no_decay
+
+
+def decay_group_names(params: Dict) -> Tuple[List[str], List[str]]:
+    """The leaf names of `decay_groups(params)`, in the same order."""
+    decay, no_decay = [], []
+    for name, leaf in named_leaves(params):
+        (decay if _decays(name, leaf) else no_decay).append(name)
+    return decay, no_decay

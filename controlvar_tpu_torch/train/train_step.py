@@ -12,7 +12,12 @@ steps, these update the parameters and the optimizer state in place.
 Inside a `torch.distributed` process group every step averages its
 gradients over the ranks before the clip (`parallel.distributed`), and the
 ControlVAR and LoRA steps normalize the loss by the global batch's
-ignore-mask weight.
+ignore-mask weight. A tensor-parallel ControlVAR model (its mesh's model
+axis above 1) trains this rank's shard: the ranks of a model group see the
+same rows, so the gradients are averaged and the loss weight summed over
+the data group alone, and the clip's global norm sums the cut leaves'
+squares over the model group and counts each whole leaf once. The LoRA and
+VAR steps are not ported to tensor parallelism yet.
 
 Batch dict contract (numpy arrays or tensors; the step copies them to its
 device with `data.build.to_device`):
@@ -43,7 +48,8 @@ from controlvar_tpu_torch.models.control_var import ControlVARModel, separator_m
 from controlvar_tpu_torch.models.var import VARModel
 from controlvar_tpu_torch.models.vqvae import VQVAE
 from controlvar_tpu_torch.parallel.distributed import (all_reduce_sum, average_gradients,
-                                                       process_count)
+                                                       group_size)
+from controlvar_tpu_torch.parallel.tensor import leaf_split, sum_of_squares
 from controlvar_tpu_torch.train.lr_schedule import lr_wd_at_step
 from controlvar_tpu_torch.train.param_groups import decay_groups, named_leaves
 
@@ -172,17 +178,33 @@ def _microbatch(batch: Dict, i: int, size: int) -> Dict:
     return {k: cut(v) for k, v in batch.items()}
 
 
-def _clip_and_update(state: TrainState, grad_clip: float, lr: float, wd: float):
+def _data_group(model):
+    """The group a step averages over: the data group of a model's mesh,
+    the whole world (None) without one."""
+    mesh = getattr(model, "mesh", None)
+    return None if mesh is None else mesh.data_group
+
+
+def _clip_and_update(state: TrainState, grad_clip: float, lr: float, wd: float,
+                     model=None):
     """Average the gradients of state's params over the ranks of a process
-    group (`parallel.distributed.average_gradients`; nothing without one),
-    clip them by their global norm as optax clips, then take the optimizer
-    step at (lr, wd), wd on the first (the decayed) group only. Returns the
-    norm before clipping."""
-    leaves = [leaf for _, leaf in named_leaves(state.params)]
-    average_gradients(leaves)
-    grads = [leaf.grad for leaf in leaves if leaf.grad is not None]
-    grad_norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    group (`parallel.distributed.average_gradients`; nothing without one;
+    the data group of a model with a mesh), clip them by their global norm
+    as optax clips, then take the optimizer step at (lr, wd), wd on the
+    first (the decayed) group only. Returns the norm before clipping: of the
+    whole model, when `model` is tensor parallel and state.params its
+    shard."""
+    named = [(name, leaf) for name, leaf in named_leaves(state.params)]
+    average_gradients([leaf for _, leaf in named], group=_data_group(model))
+    grads = [leaf.grad for _, leaf in named if leaf.grad is not None]
+    tp = getattr(model, "tp", None)
+    if tp is None:
+        grad_norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    else:
+        split = [leaf_split(name, model.cfg, tp.model) is not None
+                 for name, leaf in named if leaf.grad is not None]
+        grad_norm = torch.sqrt(sum_of_squares(grads, split, tp))
     # optax's clip_by_global_norm: g * max_norm / norm when norm >= max_norm
     factor = torch.where(grad_norm < grad_clip, 1.0, grad_clip / grad_norm)
     for g in grads:
@@ -272,9 +294,12 @@ class ControlVARTrainStep(_TrainStep):
         its rows of the global batch, that weight is all-reduced over the
         ranks and divided by accum * W, so that the mean of the ranks'
         gradients (`average_gradients`, in the update) is the global batch's
-        and not a mean of per-rank means; aux is averaged over the ranks."""
+        and not a mean of per-rank means; aux is averaged over the ranks.
+        Under tensor parallelism the ranks are those of the data group: a
+        model group's ranks hold the same rows."""
         loss_fn = self.loss_fn_tokens if from_tokens else self.loss_fn
-        world = process_count()
+        group = _data_group(self.model)
+        world = group_size(group)
         if accum <= 1 and world == 1:
             loss, aux = loss_fn(params, vq_params, batch, generator, mask_first)
             loss.backward()
@@ -285,7 +310,7 @@ class ControlVARTrainStep(_TrainStep):
         ign = _aligned_ignore(self.model.cfg, _order_ignore(batch, mask_first),
                               self.model.cfg.seq_len)
         denom = None if ign is None else all_reduce_sum(
-            ign.float().sum() + 1e-6 * ign.numel()) / (accum * world)
+            ign.float().sum() + 1e-6 * ign.numel(), group) / (accum * world)
         aux = {"loss": 0.0, "acc": 0.0}
         for i in range(accum):
             loss_i, aux_i = loss_fn(params, vq_params, _microbatch(batch, i, n // accum),
@@ -293,7 +318,7 @@ class ControlVARTrainStep(_TrainStep):
             (loss_i / accum).backward()
             aux = {k: aux[k] + aux_i[k] / accum for k in aux}
         if world > 1:
-            both = all_reduce_sum(torch.stack([aux["loss"], aux["acc"]]).detach()) / world
+            both = all_reduce_sum(torch.stack([aux["loss"], aux["acc"]]).detach(), group) / world
             aux = {"loss": both[0], "acc": both[1]}
         return aux
 
@@ -309,7 +334,7 @@ class ControlVARTrainStep(_TrainStep):
         state.optimizer.zero_grad(set_to_none=True)
         aux = self._backward(state.params, vq_params, batch, generator, mask_first,
                             from_tokens, accum)
-        grad_norm = _clip_and_update(state, self.optim.grad_clip, lr, wd)
+        grad_norm = _clip_and_update(state, self.optim.grad_clip, lr, wd, self.model)
         return state, dict(aux, lr=lr, wd=wd, grad_norm=grad_norm)
 
 
@@ -322,6 +347,10 @@ class LoRAControlVARTrainStep:
     are those of `base`."""
 
     def __init__(self, base: ControlVARTrainStep, lora_cfg: LoRAConfig):
+        if getattr(base.model, "tp", None) is not None:
+            raise NotImplementedError("LoRA fine-tuning is not ported to tensor parallelism "
+                                      "yet (the JAX Trainer shards the base and replicates "
+                                      "the factors)")
         self.base, self.lora_cfg = base, lora_cfg
 
     def init_lora_state(self, generator: torch.Generator, base_params: Params,

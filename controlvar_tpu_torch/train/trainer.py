@@ -3,14 +3,18 @@
 The port of `controlvar_tpu/train/trainer.py` (the single-host replacement
 for the reference's mp.spawn + DDP process loop, reference:
 train_control_var_hpu.py:536-689). One process drives one device; a
-multi-process run calls `parallel.distributed.initialize()` first, gives
-each rank's loader its shard (`shard_id=process_index()`,
-`num_shards=process_count()`), and the steps average the gradients over the
-ranks. Only the primary rank logs and writes checkpoints.
-
-The JAX package's `opt_state_shardings`/`shard_opt_state` place the Adam
-moments under tensor parallelism; under data parallelism every rank holds
-the whole state, so they have no counterpart here.
+multi-process run calls `parallel.distributed.initialize()` first and lays
+the processes out as data x model_axis (`parallel.mesh.make_mesh`). Each
+rank's loader reads the shard of its data index (`parallel.mesh.
+data_shard`), and the steps average the gradients over the data group.
+With model_axis above 1 the model is tensor parallel: each rank trains its
+shard of the params (`parallel.tensor.shard_params`), its AdamW moments
+live on that shard (`opt_state_shardings`, `shard_opt_state`: a whole
+optimizer state from a checkpoint is cut to the shard), the ranks of a
+model group draw the same drop-path and cond-drop masks, and checkpoints
+hold the whole state (`ckpt/orbax_io.py`). Only the primary rank logs and
+writes checkpoints. LoRA fine-tuning is not ported to tensor parallelism
+yet.
 """
 from __future__ import annotations
 
@@ -26,10 +30,10 @@ from controlvar_tpu_torch.config import ControlVARConfig, OptimConfig, VQVAEConf
 from controlvar_tpu_torch.device import DeviceLike, generator_for, resolve_device, tree_to
 from controlvar_tpu_torch.models.control_var import ControlVARModel
 from controlvar_tpu_torch.models.vqvae import VQVAE
-from controlvar_tpu_torch.parallel.distributed import (barrier, form_global_batch,
-                                                       is_primary, process_count,
-                                                       process_index)
+from controlvar_tpu_torch.parallel.distributed import barrier, form_global_batch, is_primary
 from controlvar_tpu_torch.parallel.mesh import make_mesh
+from controlvar_tpu_torch.parallel.tensor import (opt_state_shardings,  # noqa: F401
+                                                  shard_opt_state, shard_params)
 from controlvar_tpu_torch.train.train_step import (ControlVARTrainStep, TrainState,
                                                    init_train_state)
 
@@ -74,13 +78,18 @@ class Trainer:
                 "from_tokens does not support bidirectional training: token "
                 "shards carry only the mask-first ignore_mask order"
             )
+        if self.model_axis > 1 and self.lora_rank > 0:
+            raise NotImplementedError("LoRA fine-tuning is not ported to tensor parallelism "
+                                      "yet (the JAX Trainer shards the base and replicates "
+                                      "the factors)")
         self.device = resolve_device(self.device)
-        self.model = ControlVARModel(self.model_cfg, device=self.device)
+        self.mesh = make_mesh(model=self.model_axis, cfg=self.model_cfg)
+        self.model = ControlVARModel(self.model_cfg, device=self.device, mesh=self.mesh)
         self.vqvae = VQVAE(self.vq_cfg, device=self.device)
-        self.mesh = make_mesh(model=self.model_axis)
         self.steps_per_epoch = self.loader.steps_per_epoch()
         self.set_max_steps(self.optim.epochs * self.steps_per_epoch)
-        self.io = CheckpointIO(self.ckpt_dir) if self.ckpt_dir else None
+        self.io = (CheckpointIO(self.ckpt_dir, mesh=self.mesh, cfg=self.model_cfg)
+                   if self.ckpt_dir else None)
 
     def set_max_steps(self, max_steps: int):
         """Cap the training horizon (e.g. `--steps` smoke runs). Must be
@@ -95,10 +104,13 @@ class Trainer:
 
     def init_state(self, seed: int = 0, base_params: Optional[Dict] = None) -> TrainState:
         """base_params: pretrained weights (e.g. converted .pth after VAR
-        surgery). With lora_rank > 0 they become the frozen LoRA base and the
-        TrainState holds only the (A, B) factors."""
+        surgery), whole. With lora_rank > 0 they become the frozen LoRA base
+        and the TrainState holds only the (A, B) factors; with model_axis > 1
+        the TrainState holds this rank's shard."""
         params = base_params or self.model.init_params(seed)
         params = tree_to(params, self.device)
+        if self.model.tp is not None:
+            params = shard_params(self.mesh, params, self.mesh.model_index, self.model_cfg)
         self._lora_stepper = None
         if self.lora_rank > 0:
             from controlvar_tpu_torch.ckpt.lora import LoRAConfig
@@ -122,16 +134,18 @@ class Trainer:
         return restored, (meta or {}).get("epoch", 0)
 
     def _save(self, step: int, state: TrainState, epoch: int) -> None:
-        """The primary rank writes; every rank waits until the file is
-        whole, so that any of them may restore it."""
-        if is_primary():
+        """The primary rank writes (under tensor parallelism every rank
+        takes part in the gather); every rank waits until the file is whole,
+        so that any of them may restore it."""
+        if is_primary() or self.model.tp is not None:
             self.io.save(step, state, metadata={"epoch": epoch})
         barrier()
 
     def _generator(self, step_i: int) -> torch.Generator:
         """The step's generator (drop path, cond drop), seeded from (step,
-        rank) so that ranks draw apart; generator_for(step_i) at one rank."""
-        return generator_for(step_i * process_count() + process_index())
+        data index) so that data shards draw apart and the ranks of a model
+        group draw alike; generator_for(step_i) at one rank."""
+        return generator_for(step_i * self.mesh.data + self.mesh.data_index)
 
     # ---- loop --------------------------------------------------------------
 

@@ -385,13 +385,14 @@ def test_cli_train_var_pretrained_surgery_smoke(tmp_path, capsys):
 
 def test_cli_guards_and_messages(tmp_path):
     """The JAX CLI's guards: --force without --cond_image, an empty
-    --ckpt_dir, a model axis (tensor parallelism is not ported), and the
-    samplers' separator/type_pos rejection, surfaced as they are."""
+    --ckpt_dir, a model axis larger than the process group (one process
+    here; tests/test_torch_tp.py runs it on two), and the samplers'
+    separator/type_pos rejection, surfaced as they are."""
     with pytest.raises(SystemExit, match="--force control requires --cond_image"):
         tcli.main(["sample", *SMOKE, *CPU, "--force", "control"])
     with pytest.raises(SystemExit, match="no checkpoint found under"):
         tcli.main(["export", *SMOKE, *CPU, "--ckpt_dir", str(tmp_path / "empty")])
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="needs 2 processes, have 1"):
         tcli.main(["train", *TRAIN, "--model_axis", "2"])
     with pytest.raises(ValueError, match="separator/type_pos"):
         tcli.main(["sample", *SMOKE, *CPU, "--separator", "--out", str(tmp_path / "s")])

@@ -108,12 +108,16 @@ def test_mesh_config_equals_the_jax_one():
         (f.name, f.default) for f in dataclasses.fields(JMeshConfig)]
 
 
-def test_make_mesh_is_data_parallel_over_the_processes():
-    assert mesh.make_mesh() == MeshConfig(data=1, model=1)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        mesh.make_mesh(model=2)
+@pytest.mark.parametrize("layout", ["default", "model=2", "data=2"])
+def test_make_mesh_is_data_parallel_over_the_processes(layout):
+    """One process: the default layout is 1x1, and a layout of two
+    processes (a model axis of 2, tensor parallel, or a data
+    axis of 2) raises, naming the processes it needs."""
+    if layout == "default":
+        assert mesh.make_mesh() == MeshConfig(data=1, model=1)
+        return
     with pytest.raises(ValueError, match="needs 2 processes"):
-        mesh.make_mesh(data=2)
+        mesh.make_mesh(**{layout.split("=")[0]: 2})
 
 
 def test_distributed_helpers_without_a_group():
