@@ -16,7 +16,9 @@ Run from the root of a checkout. Phases, each fatal on failure:
      separator joint path (16 CFG rows, l = 2 (pn^2 + 1), cur up to 1378),
      with its and SDPA's times per scale and per call; then at every serving
      scale over a tensor-parallel rank's cache (model=2: 8 of the 16 heads),
-     with its, the plain version's and SDPA's times at the final scale;
+     with its, the plain version's and SDPA's times at the final scale,
+     and at every scale of the separator joint path on such a rank (16 CFG
+     rows, 8 heads, cur up to 1378), timed at its final scale;
   4. K2 bisection sampling vs its plain version on the same noise at every
      scale's row count (top-k alone: the same ids on every row; with top-p:
      on >= 0.999 of them), on tied and on flat logits, at V = 1000, with
@@ -31,13 +33,14 @@ Run from the root of a checkout. Phases, each fatal on failure:
      edges off the 64-row tiles, a 34-row last tile) under its block-causal
      mask, under a random pattern of 64 x 64 tiles (fully
      masked tiles anywhere, the diagonal kept) and at a tensor-parallel
-     rank's shape (8, 8, 1360, 64), with q, k, v and dO strided
+     rank's shapes (8, 8, 1360, 64) and, separator, (8, 8, 1378, 64),
+     with q, k, v and dO strided
      as the training path gives them, and at a small ragged shape under a causal
      mask; K3 also with rows that attend nowhere and at a scale that is not
      a power of two (0.9/32); K3 and K4 each run twice on the same inputs
      give the same bits; with their times, the plain versions' and SDPA's
      (forward, and its autograd backward) at the three training shapes and
-     at the tensor-parallel rank's;
+     at the tensor-parallel rank's two;
   6. K5 prefix decode vs its plain version at every scale's (pos, l) of
      the d24 joint path's segmented cache (16 CFG rows, 24 heads), over the
      full prefix and over the kv_window=2 one, on the views
@@ -189,7 +192,24 @@ Run from the root of a checkout. Phases, each fatal on failure:
      the gathered params after it against the one-device step) and two
      timed ones, then `cli.main train --model_axis 2` for one step (K3/K4
      32/16) on a second group. Its img/s and s/step are those of two ranks
-     sharing one card over gloo: a correctness run, not TP speed.
+     sharing one card over gloo: a correctness run, not TP speed;
+ 25. the Trainer's other model-axis modes, two more ranks of this script
+     (`--tp-modes-rank`) on this card in a gloo group with make_mesh(model=2),
+     rank 0 also running each one-device reference (in a group of its own,
+     so that its steps average over one rank), every count set to 0 just
+     before each path and read just after on both: ControlVAR-d16 with
+     separator, type_pos, shared_aln and bidirectional (gates raised):
+     StepwiseJointSampler at B=8 with the ranks' generators seeded apart
+     (their ids equal; K1 160, K2 10), and a call on the one-device call's
+     ids whose CFG branches' logits at scales 1 and 9 agree with that
+     call's (TP_LOGIT_REL_L2 on each branch); a train step in each stream
+     order and a from-tokens step with grad_accum 2 (K3/K4 32/16 and 64/32)
+     against the one-device steps at phase 24's limits; StepwiseCondSampler
+     on a shared_aln and bidirectional d16 (B=8) on the one-device ids; a
+     LoRA r16 step over the cut d16 multi_cond base with random B (every
+     factor's gradient cosine, both ranks' factors bit-equal); then `cli.main
+     train --model_axis 2 --lora 16 --separator --type_pos --bidirectional
+     --steps 1` (K3/K4 32/16) on a second group.
 Prints the card, a `kernels` JSON line (K1-K8) and, last,
 {"ok": true, "device": ...}.
 It exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -446,10 +466,31 @@ def k1_phase(torch, cfg, cfg24, sep_cfg):
         errs.append(case(f"K1 tensor-parallel rank (8 heads) l={cur - lo} cur={cur}",
                          rand_q(cur - lo, H=Ht), ckt, cvt, 1, cur))
     tp_rank = final_scale("tensor-parallel rank (8 heads), final scale", ckt, cvt, Ht)
+    del ckt, cvt
+    # the separator joint path on a tensor-parallel rank (phase 25): 16 CFG
+    # rows, 8 of the 16 heads, every scale up to cur 1378
+    cks, cvs = (torch.randn(2, 16, Ht, sep_cfg.seq_len, hd, generator=g, device=dev).to(bf)
+                for _ in range(2))
+    for si, (lo, cur) in enumerate(sep_cfg.begin_ends):
+        errs.append(case(f"K1 d16 separator tensor-parallel rank (8 heads) l={cur - lo} "
+                         f"cur={cur}", rand_q(cur - lo, 16, Ht), cks, cvs, si % 2, cur))
+    lo, cur = sep_cfg.begin_ends[-1]
+    q = rand_q(cur - lo, 16, Ht)
+    kk, vv = cks[1, :, :, :cur], cvs[1, :, :, :cur]
+    ms = cuda_ms(lambda: decode_attention(q, cks, cvs, 1, cur, scale), 20)
+    plain_ms = cuda_ms(lambda: decode_attention_plain(q, kk, vv, scale), 5)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, vv, scale=scale), 20)
+    b_ms, b_by = bound_ms(2 * (2 * q.numel() + 2 * 16 * Ht * cur * hd),
+                          4 * 16 * Ht * (cur - lo) * cur * hd, PEAK_BF16_FLOPS)
+    print(f"K1 d16 separator tensor-parallel rank (8 heads), final scale (16, 8, {cur - lo}, "
+          f"64) over {cur} rows: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    tp_sep = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    del cks, cvs
     return dict(name="decode_attention", route="cuda",
                 source="controlvar_tpu_torch/csrc/decode_attention.cu",
                 replaces="controlvar_tpu/ops/attention.py:403",
-                max_abs_err=max(errs), tp_rank=tp_rank, **full)
+                max_abs_err=max(errs), tp_rank=tp_rank, tp_sep=tp_sep, **full)
 
 
 def k2_phase(torch, V, patch_nums):
@@ -651,7 +692,9 @@ def flash_phase(torch, cfg, var_cfg, sep_cfg):
              ("random 64x64 tile pattern (8, 16, 1360, 64), strided", 8, cfg.num_heads,
               tile_pattern_mask(cfg.seq_len), True),
              ("d16 tensor-parallel rank (8, 8, 1360, 64), block-causal, strided", 8,
-              cfg.num_heads // 2, train_mask, True)]
+              cfg.num_heads // 2, train_mask, True),
+             ("d16 separator tensor-parallel rank (8, 8, 1378, 64), block-causal, strided", 8,
+              sep_cfg.num_heads // 2, sep_mask, True)]
 
     def check_k3(name, q, k, v, mask, sc, out, lse):
         """K3's out and lse against the plain version's, and a second run on
@@ -738,18 +781,20 @@ def flash_phase(torch, cfg, var_cfg, sep_cfg):
     times("VAR-d16 train shape (8, 16, 680, 64)", 8, var_cfg.num_heads, var_mask)
     times("d16 separator train shape (8, 16, 1378, 64)", 8, sep_cfg.num_heads, sep_mask)
     tp3, tp4 = times("d16 tensor-parallel rank shape (8, 8, 1360, 64)", 8, H // 2, train_mask)
+    sep3, sep4 = times("d16 separator tensor-parallel rank shape (8, 8, 1378, 64)", 8,
+                       sep_cfg.num_heads // 2, sep_mask)
     tp_rank = lambda ms, plain, lib, b: dict(ms=ms, plain_ms=plain, library_ms=lib,
                                              bound_ms=b[0], bound_by=b[1])
     return (dict(name="flash_attention", route="cuda",
                  source="controlvar_tpu_torch/csrc/flash_attention.cu",
                  replaces="controlvar_tpu/ops/attention.py:99", max_abs_err=max(errs3),
                  ms=ms3, plain_ms=plain3, bound_ms=b3[0], bound_by=b3[1], library_ms=lib3,
-                 tp_rank=tp_rank(*tp3)),
+                 tp_rank=tp_rank(*tp3), tp_sep=tp_rank(*sep3)),
             dict(name="flash_attention_bwd", route="cuda",
                  source="controlvar_tpu_torch/csrc/flash_attention.cu",
                  replaces="controlvar_tpu/ops/attention.py:1085", max_abs_err=max(errs4),
                  ms=ms4, plain_ms=plain4, bound_ms=b4[0], bound_by=b4[1], library_ms=lib4,
-                 tp_rank=tp_rank(*tp4)))
+                 tp_rank=tp_rank(*tp4), tp_sep=tp_rank(*sep4)))
 
 
 def prefix_phase(torch, cfg):
@@ -2515,10 +2560,12 @@ def _tp_serving_inputs(torch, cfg, B=16):
 
 
 @contextlib.contextmanager
-def _tp_recorded(torch, forced=None):
+def _tp_recorded(torch, forced=None, branches=None):
     """(ids of every draw after the model group's broadcast, {scale: the
     CFG-combined logits of scales 1 and 9}); with `forced`, each draw is
-    replaced by forced[scale]."""
+    replaced by forced[scale]; with a dict `branches`, each CFG branch's
+    own logits at those scales (`head_logits` of every row, cut to the
+    vocabulary) go into it."""
     from controlvar_tpu_torch.eval import stepwise
     from controlvar_tpu_torch.models import transformer as tfm
 
@@ -2535,7 +2582,11 @@ def _tp_recorded(torch, forced=None):
     def spy_head(*args, **kwargs):
         out = head(*args, **kwargs)
         if len(ids) in (1, 9):
-            logits[len(ids)] = out[..., : args[3].vocab_size].detach().clone()
+            V = args[3].vocab_size
+            logits[len(ids)] = out[..., :V].detach().clone()
+            if branches is not None:
+                tp = args[5] if len(args) > 5 else kwargs.get("tp")
+                branches[len(ids)] = tfm.head_logits(*args[:4], tp)[..., :V].detach().clone()
         return out
 
     stepwise.tp_draw, tfm.head_logits_cfg = spy_draw, spy_head
@@ -2554,6 +2605,35 @@ def _tp_train_step(torch, cfg, model, vqvae, params, vq_params):
     optim = OptimConfig(total_batch_size=8)
     stepper = ControlVARTrainStep(model, vqvae, optim, max_steps=1000, warmup_steps=10)
     return stepper, init_train_state(params, optim), _pixel_batch(torch, 8, cfg.num_classes, 5)
+
+
+def _tp_step_limits(torch, label, one, tp, names=None):
+    """A tensor-parallel step (loss, grad_norm, lr, {name: param after},
+    {name: clipped gradient}, whole trees on the card) against the
+    one-device step's: the limits above; `names` (default: the block
+    leaves) are also held to TRAIN_GRAD_COS one by one. Returns the printed
+    summary dict."""
+    loss, norm, lr, params, grads = one
+    t_loss, t_norm, _, t_params, t_grads = tp
+    cosine = lambda a, b: float((a.double() @ b.double()) / (a.double().norm() * b.double().norm()))
+    flat = lambda g: torch.cat([g[k].reshape(-1).float() for k in sorted(g)])
+    rel = abs(t_loss - loss) / abs(loss)
+    rel_norm = abs(t_norm - norm) / norm
+    cos = cosine(flat(t_grads), flat(grads))
+    names = names or [k for k in grads if k.startswith("blocks/")]
+    leaf_cos = {k: cosine(t_grads[k].reshape(-1), grads[k].reshape(-1)) for k in names}
+    worst = min(leaf_cos, key=leaf_cos.get)
+    excess = max(float(((t_params[k] - v).abs() - (2 * lr + 2.0 ** -22 * v.abs())).max())
+                 for k, v in params.items())
+    print(f"{label}: loss {t_loss:.6f} vs {loss:.6f} one device (relative {rel:.3e}), "
+          f"grad_norm {t_norm:.6f} vs {norm:.6f} (relative {rel_norm:.3e}), gradient cosine "
+          f"{cos:.6f}, worst leaf {worst} {leaf_cos[worst]:.6f}, params after the step: "
+          f"largest |diff| - (2 lr + 2 ulp) = {excess:.3e} (lr {lr:.3e})", flush=True)
+    if not (rel <= TRAIN_LOSS_RTOL and rel_norm <= TP_GRAD_NORM_RTOL and cos >= TRAIN_GRAD_COS
+            and leaf_cos[worst] >= TRAIN_GRAD_COS and excess <= 0.0):
+        fail(f"{label}: outside the limits against the one-device step")
+    return dict(loss_rel=rel, grad_norm_rel=rel_norm, cos=cos, worst=worst,
+                worst_cos=leaf_cos[worst])
 
 
 def tp_rank_main(rank: int, port: str, port_cli: str, directory: str) -> None:
@@ -2752,25 +2832,10 @@ def tp_phase(torch, cfg, smi: str):
     tp = torch.load(os.path.join(d, "train_rank0.pt"), weights_only=True)
     tp_params, tp_grads = dict(named_leaves(tp["params"])), dict(named_leaves(tp["grads"]))
     x = res[0]
-    rel = abs(x["loss"] - one["loss"]) / abs(one["loss"])
-    rel_norm = abs(x["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
-    cosine = lambda a, b: float((a.double() @ b.double()) / (a.double().norm() * b.double().norm()))
-    flat = lambda g: torch.cat([g[k].reshape(-1).float().cuda() for k in sorted(g)])
-    cos = cosine(flat(tp_grads), flat(one_grads))
-    leaf_cos = {k: cosine(tp_grads[k].reshape(-1).cuda(), one_grads[k].reshape(-1))
-                for k in one_grads if k.startswith("blocks/")}
-    worst = min(leaf_cos, key=leaf_cos.get)
-    excess = max(float(((tp_params[k].cuda() - v).abs()
-                        - (2 * one["lr"] + 2.0 ** -22 * v.abs())).max())
-                 for k, v in one_params.items())
-    print(f"tensor-parallel train step vs one device: loss {x['loss']:.6f} vs {one['loss']:.6f} "
-          f"(relative {rel:.3e}), grad_norm {x['grad_norm']:.6f} vs {one['grad_norm']:.6f} "
-          f"(relative {rel_norm:.3e}), gradient cosine {cos:.6f}, worst block leaf {worst} "
-          f"{leaf_cos[worst]:.6f}, params after the step: largest |diff| - (2 lr + 2 ulp) = "
-          f"{excess:.3e} (lr {one['lr']:.3e})")
-    if not (rel <= TRAIN_LOSS_RTOL and rel_norm <= TP_GRAD_NORM_RTOL and cos >= TRAIN_GRAD_COS
-            and leaf_cos[worst] >= TRAIN_GRAD_COS and excess <= 0.0):
-        fail("tensor-parallel train step outside its limits against the one-device step")
+    _tp_step_limits(torch, "tensor-parallel train step vs one device",
+                    (one["loss"], one["grad_norm"], one["lr"], one_params, one_grads),
+                    (x["loss"], x["grad_norm"], None, {k: v.cuda() for k, v in tp_params.items()},
+                     {k: v.cuda() for k, v in tp_grads.items()}))
     img_s = 16 / x["serve_s"]
     s_step = sum(x["step_s"]) / len(x["step_s"])
     print(f"tensor-parallel d16 (model=2): {img_s:.3f} img/s, {s_step:.4f} s/step, phase "
@@ -2778,6 +2843,319 @@ def tp_phase(torch, cfg, smi: str):
           f"gloo: a correctness run, not TP speed")
     tmp.cleanup()
     return dict(img_s=img_s, s_step=s_step, counts=res[0]["serve_counts"] + res[0]["step_counts"])
+
+
+# ---- tensor parallelism: the Trainer's other model-axis modes -----------------
+
+# Phase 25 holds, on two ranks of this card in a gloo group (model=2), each
+# mode that `Trainer(model_axis)` trains in the JAX package beyond phase
+# 24's: the options (one d16 model with separator, type_pos, shared_aln and
+# bidirectional; StepwiseCondSampler refuses separator and type_pos, so the
+# conditional call runs a shared_aln and bidirectional d16), LoRA over a cut
+# base, and from-tokens steps with grad_accum. Rank 0 runs each one-device
+# reference in its own process (no collective: rank 1 waits at the next
+# one) and holds the tensor-parallel result to it at phase 24's limits.
+# LoRA's factors stay whole on every rank: each factor's gradient cosine
+# >= TRAIN_GRAD_COS, and both ranks' factors bit-equal after the step.
+# Sampling is held by each CFG branch's own logits at scales 1 and 9
+# (TP_LOGIT_REL_L2 on every branch): the combined logits (1 + t) a - t b
+# cancel where the branches agree, as the joint sampler's two do at t = 4
+# on the last scale, so their relative error is that of the branches times
+# (|1 + t| |a| + |t| |b|) / |(1 + t) a - t b|; it is printed beside them.
+
+
+def _token_batch(torch, cfg, B, seed):
+    """B rows of seeded per-scale ids, classes, cond types and a
+    separator-free ignore mask (about 70% ones), on the card."""
+    g = torch.Generator().manual_seed(seed)
+    ids = lambda: [torch.randint(0, cfg.vocab_size, (B, pn * pn), generator=g).cuda()
+                   for pn in cfg.patch_nums]
+    L = 2 * sum(pn * pn for pn in cfg.patch_nums)
+    return dict(ctrl_ids=ids(), img_ids=ids(),
+                cls=torch.randint(0, cfg.num_classes, (B,), generator=g).cuda(),
+                type=torch.randint(0, 4, (B,), generator=g).cuda(),
+                ignore_mask=(torch.rand(B, L, generator=g) < 0.7).float().cuda())
+
+
+def tp_modes_rank_main(rank: int, port: str, port_cli: str, directory: str) -> None:
+    """One rank of phase 25 (`python3 chip_smoke.py --tp-modes-rank RANK PORT
+    PORT_CLI DIR`): a gloo group of two on this card, make_mesh(model=2),
+    then on the option model a StepwiseJointSampler call at B=8 with the
+    ranks' generators seeded apart (the ids equal) and one on the
+    one-device call's ids (its combined logits at scales 1 and 9 against
+    that call's), a train step in each stream order, a from-tokens step with
+    grad_accum=2; StepwiseCondSampler on the shared_aln model on the
+    one-device call's ids; a rank-16 LoRA step over the cut d16 base with
+    random B; then `cli.main train --model_axis 2 --lora 16 --separator
+    --type_pos --bidirectional --steps 1` on a second group. Every count is
+    set to 0 just before each path and read just after, on the one-device
+    reference and on the tensor-parallel run. Writes DIR/rank<RANK>.json."""
+    import faulthandler
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    import controlvar_tpu_torch.eval.stepwise as stepwise
+    from controlvar_tpu_torch.ckpt.lora import LoRAConfig, init_lora_params
+    from controlvar_tpu_torch.config import (OptimConfig, VQVAEConfig,
+                                             control_var_config_from_depth)
+    from controlvar_tpu_torch.device import tree_map
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.ops.attention import (decode_attention, flash_attention,
+                                                    flash_attention_bwd)
+    from controlvar_tpu_torch.ops.sample_kernel import sample_top_k_top_p_bisect
+    from controlvar_tpu_torch.parallel import distributed
+    from controlvar_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from controlvar_tpu_torch.parallel.tensor import gather_params, shard_params
+    from controlvar_tpu_torch.train.param_groups import named_leaves
+    from controlvar_tpu_torch.train.train_step import (ControlVARTrainStep,
+                                                       LoRAControlVARTrainStep, init_train_state)
+
+    # a rank that hangs in a collective prints where before its parent's limit
+    faulthandler.dump_traceback_later(TP_CALL_TIMEOUT_S - 30, exit=True)
+    kernels = (decode_attention, sample_top_k_top_p_bisect, flash_attention, flash_attention_bwd)
+    counts = lambda: [k.launches for k in kernels]
+    opt_cfg = control_var_config_from_depth(16, multi_cond=True, separator=True, type_pos=True,
+                                            shared_aln=True, bidirectional=True)
+    sh_cfg = control_var_config_from_depth(16, multi_cond=True, shared_aln=True,
+                                           bidirectional=True)
+    base_cfg = control_var_config_from_depth(16, multi_cond=True)
+    distributed.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+    mesh = make_mesh(model=2, cfg=opt_cfg)
+    # the one-device references' layout: rank 0 alone, so that their steps
+    # average over a group of one and not over the world
+    solo = Mesh(data=1, model=1, data_group=dist.new_group([0]))
+    res = {"rank": rank, "mesh": [mesh.data, mesh.model, mesh.data_index, mesh.model_index],
+           "counts": {}, "one_counts": {}, "times": {}}
+    vqvae = VQVAE(VQVAEConfig())
+    vq_params = vqvae.init_params(1)
+    B = 8
+    g = torch.Generator().manual_seed(31)
+    labels = torch.randint(0, opt_cfg.num_classes, (B,), generator=g)
+    cond_type = torch.randint(0, 4, (B,), generator=g)
+
+    def run(label, fn, one_device=False):
+        """fn() with every count set to 0 just before and read just after."""
+        _reset(*kernels)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        (res["one_counts"] if one_device else res["counts"])[label] = counts()
+        dt = time.perf_counter() - t
+        if not one_device:
+            res["times"][label] = dt
+        print(f"phase 25 rank {rank}: {label}{' (one device)' if one_device else ''}: "
+              f"{dt:.3f} s", flush=True)
+        return out
+
+    def models(cfg, seed):
+        """(one-device model, tensor-parallel model, whole params with the
+        gates raised, this rank's shard)."""
+        one, tp = ControlVARModel(cfg, mesh=solo), ControlVARModel(cfg, mesh=mesh)
+        whole = raise_gates(one.init_params(seed))
+        return one, tp, whole, shard_params(mesh, whole, mesh.model_index, cfg)
+
+    def sampling(label, sampler_cls, cfg, seed, forced=None):
+        """The one-device call on rank 0 (its ids sent to rank 1), then the
+        tensor-parallel call on those ids: the combined logits of scales 1
+        and 9 against the one-device call's (rank 0). With forced (the
+        conditional sampler), both calls take those control ids."""
+        one, tp, whole, shard = models(cfg, seed)
+        kw = {} if forced is None else {"forced_ids": forced}
+        s_one, s_tp = sampler_cls(one, vqvae), sampler_cls(tp, vqvae)
+        ref, ref_logits, ref_branches, branches = [None], None, {}, {}
+        if rank == 0:
+            p1 = s_one.prepare_params(whole)
+            with _tp_recorded(torch, branches=ref_branches) as (ids, ref_logits):
+                run(label, lambda: s_one(p1, vq_params, labels, cond_type,
+                                         torch.Generator().manual_seed(11), **kw), True)
+            ref = [[t.cpu() for t in ids]]
+            del p1
+        dist.broadcast_object_list(ref, src=0)
+        p = s_tp.prepare_params(shard)
+        if sampler_cls is stepwise.StepwiseJointSampler:
+            # the ranks' generators seeded apart: their ids must still agree
+            with _tp_recorded(torch) as (ids, _):
+                run(label, lambda: s_tp(p, vq_params, labels, cond_type,
+                                        torch.Generator().manual_seed(12 + rank)))
+            torch.save([t.cpu() for t in ids], os.path.join(directory, f"ids_rank{rank}.pt"))
+        with _tp_recorded(torch, ref[0], branches) as (_, logits):
+            run(label + " on the one-device ids",
+                lambda: s_tp(p, vq_params, labels, cond_type, torch.Generator().manual_seed(11),
+                             **kw))
+        if rank == 0:
+            res[label] = {}
+            rel = lambda a, b: float((a - b).norm() / b.norm())
+            for si, want in ref_logits.items():
+                per = [rel(a, b) for a, b in zip(branches[si].split(B), ref_branches[si].split(B))]
+                res[label][str(si)] = e = dict(branch_rel_l2=per,
+                                               combined_rel_l2=rel(logits[si], want))
+                print(f"phase 25 {label}: logits at scale {si} vs one device: rel L2 of each CFG "
+                      f"branch {', '.join(f'{x:.3e}' for x in per)} (limit "
+                      f"{TP_LOGIT_REL_L2:g}); of the combined logits "
+                      f"{e['combined_rel_l2']:.3e}", flush=True)
+                if not max(per) <= TP_LOGIT_REL_L2:
+                    fail(f"phase 25 {label}: scale {si} branch logits rel L2 {max(per):.3e}")
+        del p, shard, whole
+        torch.cuda.empty_cache()
+
+    sampling("joint (separator, type_pos, shared_aln, bidirectional)",
+             stepwise.StepwiseJointSampler, opt_cfg, 2)
+    forced = [torch.randint(0, sh_cfg.vocab_size, (B, pn * pn), generator=g).cuda()
+              for pn in sh_cfg.patch_nums]
+    sampling("cond (shared_aln, bidirectional)", stepwise.StepwiseCondSampler, sh_cfg, 3,
+             forced)
+
+    optim = OptimConfig(total_batch_size=B)
+
+    def step_pair(label, cfg, seed, batch, step_kw, params_of=None, lora=None):
+        """The one-device step (rank 0) and the tensor-parallel step from the
+        same params, batch and generator; rank 0 holds them to the limits."""
+        one, tp, whole, shard = models(cfg, seed)
+        outs = {}
+        for name, model, params in (("one", one, whole), ("tp", tp, shard)):
+            if name == "one" and rank != 0:
+                continue
+            stepper = ControlVARTrainStep(model, vqvae, optim, max_steps=1000, warmup_steps=10)
+            if lora is None:
+                state = init_train_state(tree_map(lambda t: t.clone(), params), optim)
+                fn = lambda: stepper.step(state, vq_params, batch,
+                                          torch.Generator().manual_seed(6), **step_kw)
+            else:
+                lstep = LoRAControlVARTrainStep(stepper, LoRAConfig(rank=16))
+                state = lstep.init_lora_state(torch.Generator().manual_seed(7), whole, optim)
+                with torch.no_grad():
+                    for key, ab in state.params.items():
+                        ab["A"].copy_(lora[key]["A"])
+                        ab["B"].copy_(lora[key]["B"])
+                fn = lambda: lstep.step(state, params, vq_params, batch,
+                                        torch.Generator().manual_seed(6), **step_kw)
+            _, aux = run(label, fn, name == "one")
+            grads = tree_map(lambda t: t.grad, state.params)
+            if name == "tp" and lora is None:
+                grads = gather_params(mesh, grads, cfg)
+                after = gather_params(mesh, state.params, cfg)
+            else:
+                after = tree_map(lambda t: t.detach(), state.params)
+            outs[name] = (float(aux["loss"]), float(aux["grad_norm"]), float(aux["lr"]),
+                          dict(named_leaves(after)), dict(named_leaves(grads)))
+            if not all(map(math.isfinite, outs[name][:2])):
+                fail(f"phase 25 {label}: a non-finite loss or grad_norm")
+            del state
+        if lora is not None:  # both ranks' factors, bit for bit
+            mine = torch.cat([t.reshape(-1) for _, t in sorted(outs["tp"][3].items())])
+            other = mine.clone()
+            dist.broadcast(other, src=1)
+            if rank == 0 and not torch.equal(mine, other):
+                fail(f"phase 25 {label}: the ranks' factors differ after the step")
+        if rank == 0:
+            names = list(outs["one"][4]) if lora is not None else None
+            res[label] = _tp_step_limits(torch, f"phase 25 {label}", outs["one"], outs["tp"],
+                                         names)
+        del outs, whole, shard
+        torch.cuda.empty_cache()
+
+    pixels = _pixel_batch(torch, B, opt_cfg.num_classes, 5)
+    for mf in (True, False):
+        step_pair(f"train step mask_first={mf}", opt_cfg, 0, pixels, dict(mask_first=mf))
+    step_pair("from-tokens step, grad_accum=2", opt_cfg, 0, _token_batch(torch, opt_cfg, B, 8),
+              dict(from_tokens=True, accum=2))
+    # LoRA r16 over the plain d16 (every target, ada_lin's columns cut), B random
+    lora = init_lora_params(torch.Generator().manual_seed(7),
+                            ControlVARModel(base_cfg).init_params(0), LoRAConfig(rank=16))
+    gb = torch.Generator().manual_seed(9)
+    for ab in lora.values():
+        ab["B"] = (0.01 * torch.randn(ab["B"].shape, generator=gb)).cuda()
+    step_pair("LoRA r16 step", base_cfg, 0, pixels, {}, lora=lora)
+    del lora, pixels
+    distributed.shutdown()
+    torch.cuda.empty_cache()
+    from controlvar_tpu_torch.cli import main as cli
+
+    os.environ.update(COORDINATOR_ADDRESS=f"localhost:{port_cli}", NUM_PROCESSES="2",
+                      PROCESS_ID=str(rank), DIST_BACKEND="gloo")
+    run("CLI train --model_axis 2 --lora 16 --separator --type_pos --bidirectional",
+        lambda: cli.main(["train", "--depth", "16", "--multi_cond", "--batch_size", "8",
+                          "--steps", "1", "--log_every", "1", "--num_workers", "1",
+                          "--model_axis", "2", "--epochs", "1", "--lora", "16", "--separator",
+                          "--type_pos", "--bidirectional"]))
+    distributed.shutdown()
+    with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def tp_modes_phase(torch, smi: str):
+    """Phase 25: two ranks of `tp_modes_rank_main` on this card in a gloo
+    group. Returns the rank-0 result dict (the limits were held there)."""
+    tmp = _scratch_dir()
+    d = tmp.name
+    ports = [str(_free_port()), str(_free_port())]
+    t0 = time.time()
+    logs = [os.path.join(d, f"rank{r}.log") for r in range(2)]
+    procs = []
+    for r in range(2):
+        with open(logs[r], "w") as log:  # a file, not a pipe: no rank blocks on its output
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                           "--tp-modes-rank", str(r), *ports, d], stdout=log,
+                                          stderr=subprocess.STDOUT, text=True))
+
+    def tail(r):
+        with open(logs[r]) as f:
+            return f.read()[-6000:]
+
+    try:
+        for r, p in enumerate(procs):
+            p.wait(timeout=max(1.0, TP_CALL_TIMEOUT_S - (time.time() - t0)))
+            if r == 0:
+                with open(logs[0]) as f:
+                    print("\n".join(line for line in f.read().splitlines()
+                                    if line.startswith("phase 25") or "FAIL" in line))
+            if p.returncode != 0:
+                print(tail(1 - r), "\n----\n", tail(r))
+                fail(f"phase 25: rank {r} exited with {p.returncode}")
+    except subprocess.TimeoutExpired:
+        print(tail(0), "\n----\n", tail(1))
+        fail(f"phase 25: a rank ran past {TP_CALL_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.time() - t0
+    res = []
+    for r in range(2):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    ids = [torch.load(os.path.join(d, f"ids_rank{r}.pt"), weights_only=True) for r in range(2)]
+    if len(ids[0]) != 10 or not all(torch.equal(a, b) for a, b in zip(*ids)):
+        fail("phase 25: the ranks' joint draws differ")
+    print("phase 25: the joint call's ids equal on both ranks (generators seeded apart)")
+    step = _launches_per_step(16, "full")
+    want = {"joint (separator, type_pos, shared_aln, bidirectional)": [160, 10, 0, 0],
+            "cond (shared_aln, bidirectional)": [160, 10, 0, 0],
+            "train step mask_first=True": [0, 0, *step],
+            "train step mask_first=False": [0, 0, *step],
+            "from-tokens step, grad_accum=2": [0, 0, 2 * step[0], 2 * step[1]],
+            "LoRA r16 step": [0, 0, *step]}
+    for r, x in enumerate(res):
+        if x["mesh"] != [1, 2, 0, r]:
+            fail(f"phase 25: rank {r} layout {x['mesh']}")
+        for label, c in x["counts"].items():
+            base = label.replace(" on the one-device ids", "")
+            expect = want.get(base, [0, 0, *step])
+            one = res[0]["one_counts"].get(base)
+            print(f"phase 25 rank {r}: {label}: (K1, K2, K3, K4) = {tuple(c)} (one device "
+                  f"{tuple(one) if one else 'not run'}), {x['times'][label]:.3f} s")
+            if c != expect or (one is not None and one != expect):
+                fail(f"phase 25 rank {r}: {label}: launches {c}, one device {one}, expected "
+                     f"{expect}")
+    print(f"phase 25: {wall:.1f} s with the ranks' start-up, on {smi}: two ranks sharing one "
+          f"card over gloo, a correctness run, not TP speed")
+    tmp.cleanup()
+    return dict(res[0], wall=wall)
 
 
 def read_png(path):
@@ -3096,9 +3474,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     sys.path.insert(0, ROOT)
-    if sys.argv[1:2] == ["--tp-rank"]:
+    if sys.argv[1:2] in (["--tp-rank"], ["--tp-modes-rank"]):
         rank, port, port_cli, directory = sys.argv[2:6]
-        tp_rank_main(int(rank), port, port_cli, directory)
+        (tp_rank_main if sys.argv[1] == "--tp-rank" else tp_modes_rank_main)(
+            int(rank), port, port_cli, directory)
         return
     from controlvar_tpu_torch.config import (VQVAEConfig, control_var_config_from_depth,
                                              var_config_from_depth)
@@ -3211,6 +3590,10 @@ def main() -> None:
     phase("tensor parallelism: ControlVAR-d16 over model=2, two ranks on this card (gloo): "
           "the north-star call, the train step, train --model_axis 2")
     tp = tp_phase(torch, cfg, smi)
+    phase("tensor parallelism, the other modes: ControlVAR-d16 with separator, type_pos, "
+          "shared_aln and bidirectional, LoRA r16, from tokens with grad_accum 2, over model=2 "
+          "on this card (gloo); train --model_axis 2 --lora 16 with the options")
+    tp_modes = tp_modes_phase(torch, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3242,6 +3625,12 @@ def main() -> None:
     tp_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     print("tensor-parallel rank shape (8 of 16 heads): " + json.dumps(
         {e["name"]: {k: e["tp_rank"][k] for k in tp_keys} for e in (k1, k3, k4)}))
+    print("tensor-parallel separator rank shape (8 of 16 heads, L 1378; K1 at the joint "
+          "path's final scale, 16 rows): " + json.dumps(
+              {e["name"]: {k: e["tp_sep"][k] for k in tp_keys} for e in (k1, k3, k4)}))
+    print("phase 25 launches a rank (K1, K2, K3, K4): " + json.dumps(tp_modes["counts"])
+          + "; one device: " + json.dumps(tp_modes["one_counts"])
+          + f"; phase {tp_modes['wall']:.1f} s")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in (k1, k2, k3, k4, k5, k6, k7, k8)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

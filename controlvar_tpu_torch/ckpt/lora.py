@@ -11,6 +11,15 @@ activations still carry theirs through every layer.
 
 Stacked block kernels (leading depth axis) get per-layer factors
 A (D, in, r) and B (D, r, out); one batched matmul merges all layers.
+A target that is absent (ada_lin under shared_aln) gets no factors.
+
+Over a tensor-parallel base (the JAX Trainer cuts the base by
+`param_shardings` and replicates the factors) the factors stay whole and
+are made from the whole base's shapes; `apply_lora` adds to each kernel
+shard the same cut of the whole fp32 delta (`parallel/tensor.py:shard_of`):
+proj and fc2 by rows, fc1 and ada_lin by columns, and nothing cut where the
+kernel stays whole (head_nm's ada_lin; proj where the model axis does not
+divide the heads). `merge_lora` works on whole trees, for export.
 """
 from __future__ import annotations
 
@@ -21,6 +30,8 @@ import numpy as np
 import torch
 
 from controlvar_tpu_torch.device import tree_map
+from controlvar_tpu_torch.parallel.mesh import tp_of
+from controlvar_tpu_torch.parallel.tensor import leaf_split, shard_of
 
 Params = Dict
 
@@ -76,16 +87,26 @@ def init_lora_params(generator: torch.Generator, params: Params, cfg: LoRAConfig
 
 
 def apply_lora(params: Params, lora: Params, cfg: LoRAConfig,
-               freeze_base: bool = True) -> Params:
+               freeze_base: bool = True, mesh=None, model_cfg=None) -> Params:
     """A params tree with the LoRA deltas added to the targeted kernels. The
     delta (alpha/r) * A @ B is computed in fp32 and cast to the kernel's
     dtype. With freeze_base, every base leaf is detached: the base gets no
-    gradient, the LoRA factors do."""
+    gradient, the LoRA factors do. With a mesh whose model axis is above 1,
+    params is this rank's shard of a model of config model_cfg and each
+    kernel gets its shard's cut of the whole delta (module docstring)."""
+    tp = tp_of(mesh)
     out = tree_map((lambda t: t.detach()) if freeze_base else (lambda t: t), params)
     for key, ab in lora.items():
         path = tuple(key.split("/"))
         kernel = _get(out, path)
         delta = cfg.scale * torch.matmul(ab["A"].float(), ab["B"].float())
+        split = None if tp is None else leaf_split(key, model_cfg, tp.model)
+        if split is not None:
+            delta = shard_of(delta, split, tp.model, tp.model_index)
+        if delta.shape != kernel.shape:
+            raise ValueError(f"LoRA {key}: a delta of shape {tuple(delta.shape)} for a kernel "
+                             f"of {tuple(kernel.shape)} (over a tensor-parallel base the "
+                             f"factors are made from the whole tree)")
         _set(out, path, kernel + delta.to(kernel.dtype))
     return out
 

@@ -37,9 +37,9 @@ tensor parallel on this rank's shard of the params: the
 stacked cache holds the shard's heads, the logits are gathered whole, and
 each scale's ids are model rank 0's draw, broadcast over the model group
 (every rank draws, so that the generators stay in step). The VQVAE stays
-whole on every rank. The segmented cache (`kv_window`), in-place decode and
-the flat and fused layouts are not ported to tensor parallelism yet, nor is
-the plain-VAR sampler: they raise NotImplementedError there.
+whole on every rank. The segmented cache (`kv_window`), in-place decode,
+the flat and fused layouts and the plain-VAR sampler raise
+NotImplementedError there: no JAX entry point runs them on a mesh.
 """
 from __future__ import annotations
 
@@ -111,7 +111,7 @@ class _SamplerBase:
                 raise NotImplementedError(
                     "tensor parallelism takes the stacked cache of the paired layout: the "
                     "segmented cache (kv_window), in-place decode and the flat and fused "
-                    "layouts are not ported to it yet")
+                    "layouts run on one device (no JAX entry point runs them on a mesh)")
         if self.sampler not in METHODS:
             raise ValueError(f"unknown sampler {self.sampler!r}; use one of {METHODS}")
         if self.cache_mode not in ("stacked", "seg"):

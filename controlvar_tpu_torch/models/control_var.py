@@ -17,9 +17,14 @@ With a mesh whose model axis is above 1 (`parallel/mesh.py`), the model is
 tensor parallel: its params are this rank's shard
 (`parallel/tensor.py:shard_params` of `init_params`), the blocks and the
 head run Megatron's layout (`models/transformer.py`), and every draw is
-model rank 0's, broadcast over the model group. The options separator,
-type_pos, shared_aln and bidirectional, and separate decoding, are not
-ported to tensor parallelism yet: they raise NotImplementedError there.
+model rank 0's, broadcast over the model group. Every option runs tensor
+parallel: the separator's `special_embed`, type_pos's `type_embed` and
+shared_aln's `shared_ada_lin` and `ada_gss` stay whole on every rank (the
+shared modulation is made before any collective), the separator's V + 18
+head columns are cut where the model axis divides them and whole
+elsewhere, and a bidirectional model takes the stream order its caller
+gives every rank. Separate decoding, which no JAX entry point runs on a
+mesh, raises NotImplementedError there.
 """
 from __future__ import annotations
 
@@ -52,9 +57,6 @@ def separator_mapping(mask_first: bool) -> List[int]:
     return [i + 1 if i % 2 == 0 else i - 1 for i in range(18)]
 
 
-_TP_UNPORTED = ("separator", "type_pos", "shared_aln", "bidirectional")
-
-
 def tp_draw(ids: torch.Tensor, tp) -> torch.Tensor:
     """A draw made on every rank of a tensor-parallel model group, as its
     model rank 0 made it (in place; ids itself without tp): the ranks cannot
@@ -74,10 +76,6 @@ class ControlVARModel:
         self.tp = tp_of(mesh)
         if self.tp is not None:
             check_model_axis(cfg, mesh.model)
-            on = [o for o in _TP_UNPORTED if getattr(cfg, o)]
-            if on:
-                raise NotImplementedError(f"tensor parallelism (model={mesh.model}) is not "
-                                          f"ported for {', '.join(on)} models yet")
         lvl = level_index_1L(cfg.patch_nums, cfg.mask_factor, cfg.separator)
         # the (L,) scale index of every token, copied to the device once
         self._level_index = torch.from_numpy(lvl).long().to(self.device)
@@ -323,8 +321,8 @@ class ControlVARModel:
         `sample_joint_cfg` does."""
         cfg = self.cfg
         if self.tp is not None:
-            raise NotImplementedError("separate decoding is not ported to tensor parallelism "
-                                      "yet")
+            raise NotImplementedError("separate decoding runs on one device (no JAX entry "
+                                      "point runs it on a mesh)")
         if not cfg.separate_decoding or cfg.indep:
             raise ValueError("sample_joint_separate needs separate_decoding without indep")
         if cfg.mask_factor != 2 or not cfg.multi_cond:

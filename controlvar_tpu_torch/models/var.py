@@ -28,13 +28,14 @@ Params = Dict
 
 class VARModel:
     """Model entry point. Runs on `cuda` unless device="cpu" is passed.
-    mesh: the process layout; tensor parallelism (a model axis above 1) is
-    not ported to plain VAR yet and raises NotImplementedError."""
+    mesh: the process layout; a model axis above 1 raises
+    NotImplementedError (no JAX entry point runs plain VAR on a mesh)."""
 
     def __init__(self, cfg: VARConfig, device: DeviceLike = None, mesh=None):
         if mesh is not None and mesh.model > 1:
-            raise NotImplementedError(f"tensor parallelism (model={mesh.model}) is not ported "
-                                      "to VARModel and VARTrainStep yet")
+            raise NotImplementedError(f"a model axis of {mesh.model}: VARModel and VARTrainStep "
+                                      "run on one device or data parallel (no JAX entry "
+                                      "point runs plain VAR on a mesh)")
         self.cfg = cfg
         self.mesh = mesh
         self.device = resolve_device(device)

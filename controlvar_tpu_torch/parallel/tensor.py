@@ -11,12 +11,16 @@ port's attention kernels need them:
   fc2 kernel                   row-parallel: its input rows
   ada_lin (kernel, bias)       column-parallel: a contiguous cut of 6C
   head (kernel, bias)          column-parallel over the vocabulary
-Everything else (embeddings, proj and fc2 biases, head_nm) stays whole on
-every rank. A leaf whose axis does not divide stays whole, as
-`param_shardings` falls back: for the attention leaves "divides" means
-num_heads % model == 0, so ControlVAR-d30 (30 heads) at model = 4 keeps its
-attention replicated and splits its MLP and ada_lin. 6C and the MLP width
-must divide (`mesh.check_model_axis`).
+Everything else stays whole on every rank, as the rule table replicates
+it: the embeddings (with `special_embed` of the separator option and
+`type_embed` of type_pos), the proj and fc2 biases, `head_nm`, and
+shared_aln's `shared_ada_lin` and `ada_gss`. A leaf whose axis does not
+divide stays whole, as `param_shardings` falls back (the separator's
+V + 18 head columns: 4114 at d16, cut at model = 2, whole at model = 4);
+for the attention leaves "divides" means num_heads % model == 0, so
+ControlVAR-d30 (30 heads) at model = 4 keeps its attention replicated and
+splits its MLP and ada_lin. 6C and the MLP width must divide
+(`mesh.check_model_axis`).
 
 The collectives of the sharded blocks are Megatron's "f" and "g" operators
 and a gather, as autograd Functions:
@@ -31,6 +35,14 @@ Every collective here is an `all_reduce` or a `broadcast`, so the same code
 runs on NCCL (a card per rank) and on gloo (ranks that share one card, and
 the CPU): gloo takes CUDA tensors for both and stages them through host
 memory itself.
+
+A LoRA factor pair (A, B) of a target kernel stays whole on every rank;
+each rank adds to its shard of the kernel the same cut of the whole delta
+(`shard_of`, which autograd follows, through `ckpt/lora.py:apply_lora`).
+The factors of a cut kernel (`lora_cut_keys`) then hold on each rank the
+part of their gradient that its shard gives, summed over the model group
+by `sum_over_model_`; the factors of a whole kernel hold the whole
+gradient on every rank already.
 
 `gather_params` inverts `shard_params` bit for bit (each shard is
 broadcast from its rank, whole), and `gather_opt_state`/`shard_opt_state`
@@ -101,12 +113,25 @@ def _view(t: torch.Tensor, s: Split, parts: int) -> torch.Tensor:
     return t.reshape(*t.shape[:d], s.groups, parts, -1, *t.shape[d + 1:])
 
 
+def shard_of(t: torch.Tensor, s: Split, model: int, index: int) -> torch.Tensor:
+    """Model index `index`'s shard of the whole tensor t, in t's graph: the
+    gradient of the shard flows back into t's slice of it (a LoRA delta)."""
+    per = s.parts // model
+    shard = _view(t, s, s.parts).narrow(s.dim + 1, index * per, per)
+    return shard.reshape(*t.shape[:s.dim], -1, *t.shape[s.dim + 1:])
+
+
 def cut(t: torch.Tensor, s: Split, model: int, index: int) -> torch.Tensor:
     """Model index `index`'s shard of the whole leaf t, in its own storage
     (detached from t's graph)."""
-    per = s.parts // model
-    shard = _view(t.detach(), s, s.parts).narrow(s.dim + 1, index * per, per)
-    return shard.reshape(*t.shape[:s.dim], -1, *t.shape[s.dim + 1:]).clone()
+    return shard_of(t.detach(), s, model, index).clone()
+
+
+def lora_cut_keys(lora: Params, cfg, model: int) -> List[str]:
+    """The keys of a LoRA tree (its targets' leaf names) whose kernel a
+    model axis of `model` cuts: their factors' gradients are partial on
+    each rank."""
+    return [key for key in lora if leaf_split(key, cfg, model) is not None]
 
 
 def merge(shards: Sequence[torch.Tensor], s: Split) -> torch.Tensor:
@@ -285,6 +310,20 @@ def broadcast_from_model_root(t: torch.Tensor, mesh) -> torch.Tensor:
     every rank of the group (a sampler's draw)."""
     dist.broadcast(t, src=mesh.model_root, group=mesh.model_group)
     return t
+
+
+def sum_over_model_(tensors: Sequence[torch.Tensor], mesh) -> None:
+    """Replace every tensor by its sum over the model group, in place,
+    through one fp32 all-reduce of their concatenation (every rank ends
+    with the same bits)."""
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, group=mesh.model_group)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset: offset + t.numel()].view_as(t))
+        offset += t.numel()
 
 
 def sum_of_squares(grads: Sequence[torch.Tensor], split: Sequence[bool], mesh) -> torch.Tensor:

@@ -16,8 +16,12 @@ ignore-mask weight. A tensor-parallel ControlVAR model (its mesh's model
 axis above 1) trains this rank's shard: the ranks of a model group see the
 same rows, so the gradients are averaged and the loss weight summed over
 the data group alone, and the clip's global norm sums the cut leaves'
-squares over the model group and counts each whole leaf once. The LoRA and
-VAR steps are not ported to tensor parallelism yet.
+squares over the model group and counts each whole leaf once. The LoRA
+step over a tensor-parallel base keeps its factors whole on every rank: it
+sums the gradients of the factors of cut kernels over the model group, then
+averages every factor's gradient over the data group, so the factors stay
+bit-equal across the world. The VAR step takes no model axis (`VARModel`
+refuses one, as no JAX entry point trains VAR on a mesh).
 
 Batch dict contract (numpy arrays or tensors; the step copies them to its
 device with `data.build.to_device`):
@@ -49,7 +53,8 @@ from controlvar_tpu_torch.models.var import VARModel
 from controlvar_tpu_torch.models.vqvae import VQVAE
 from controlvar_tpu_torch.parallel.distributed import (all_reduce_sum, average_gradients,
                                                        group_size)
-from controlvar_tpu_torch.parallel.tensor import leaf_split, sum_of_squares
+from controlvar_tpu_torch.parallel.tensor import (leaf_split, lora_cut_keys, sum_of_squares,
+                                                  sum_over_model_)
 from controlvar_tpu_torch.train.lr_schedule import lr_wd_at_step
 from controlvar_tpu_torch.train.param_groups import decay_groups, named_leaves
 
@@ -186,23 +191,23 @@ def _data_group(model):
 
 
 def _clip_and_update(state: TrainState, grad_clip: float, lr: float, wd: float,
-                     model=None):
-    """Average the gradients of state's params over the ranks of a process
-    group (`parallel.distributed.average_gradients`; nothing without one;
-    the data group of a model with a mesh), clip them by their global norm
-    as optax clips, then take the optimizer step at (lr, wd), wd on the
-    first (the decayed) group only. Returns the norm before clipping: of the
-    whole model, when `model` is tensor parallel and state.params its
-    shard."""
+                     group=None, tp=None, cfg=None):
+    """Average the gradients of state's params over the ranks of `group`
+    (`parallel.distributed.average_gradients`; None: the whole world;
+    nothing without a process group), clip them by their global norm as
+    optax clips, then take the optimizer step at (lr, wd), wd on the first
+    (the decayed) group only. Returns the norm before clipping: of the
+    whole model when tp is the mesh of a tensor-parallel model of config
+    cfg whose shard state.params is (the cut leaves' squares summed over
+    the model group)."""
     named = [(name, leaf) for name, leaf in named_leaves(state.params)]
-    average_gradients([leaf for _, leaf in named], group=_data_group(model))
+    average_gradients([leaf for _, leaf in named], group=group)
     grads = [leaf.grad for _, leaf in named if leaf.grad is not None]
-    tp = getattr(model, "tp", None)
     if tp is None:
         grad_norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
     else:
-        split = [leaf_split(name, model.cfg, tp.model) is not None
+        split = [leaf_split(name, cfg, tp.model) is not None
                  for name, leaf in named if leaf.grad is not None]
         grad_norm = torch.sqrt(sum_of_squares(grads, split, tp))
     # optax's clip_by_global_norm: g * max_norm / norm when norm >= max_norm
@@ -334,7 +339,9 @@ class ControlVARTrainStep(_TrainStep):
         state.optimizer.zero_grad(set_to_none=True)
         aux = self._backward(state.params, vq_params, batch, generator, mask_first,
                             from_tokens, accum)
-        grad_norm = _clip_and_update(state, self.optim.grad_clip, lr, wd, self.model)
+        model = self.model
+        grad_norm = _clip_and_update(state, self.optim.grad_clip, lr, wd, _data_group(model),
+                                     model.tp, model.cfg)
         return state, dict(aux, lr=lr, wd=wd, grad_norm=grad_norm)
 
 
@@ -344,13 +351,10 @@ class LoRAControlVARTrainStep:
     holds the LoRA (A, B) tree alone; the base params are merged on the fly
     by `apply_lora`, detached, so only the factors get gradients, and the
     clip's global norm is theirs. The loss, dtypes, device and remat policy
-    are those of `base`."""
+    are those of `base`. Over a tensor-parallel model the base params are
+    this rank's shard and the factors whole (module docstring)."""
 
     def __init__(self, base: ControlVARTrainStep, lora_cfg: LoRAConfig):
-        if getattr(base.model, "tp", None) is not None:
-            raise NotImplementedError("LoRA fine-tuning is not ported to tensor parallelism "
-                                      "yet (the JAX Trainer shards the base and replicates "
-                                      "the factors)")
         self.base, self.lora_cfg = base, lora_cfg
 
     def init_lora_state(self, generator: torch.Generator, base_params: Params,
@@ -358,7 +362,9 @@ class LoRAControlVARTrainStep:
         """Fresh factors (`init_lora_params`) and their optimizer: the JAX
         chain clip, scale_by_adam, add_decayed_weights with no mask, lr, that
         is one AdamW group that decays every A and B (the clip is the
-        step's)."""
+        step's). base_params is the whole tree (or a tree of its shapes),
+        also under tensor parallelism: every rank then makes the factors that
+        one process makes from the same generator."""
         lora = init_lora_params(generator, base_params, self.lora_cfg)
         leaves = [leaf.requires_grad_(True) for _, leaf in named_leaves(lora)]
         opt = torch.optim.AdamW([{"params": leaves, "weight_decay": optim.weight_decay}],
@@ -369,15 +375,24 @@ class LoRAControlVARTrainStep:
              generator=None, mask_first: bool = True,
              from_tokens: bool = False) -> Tuple[TrainState, Dict]:
         """One optimizer step of the factors, in place on `state`; returns
-        (state, aux) as `ControlVARTrainStep.step` does. base_params is left
-        as it was and gets no gradient."""
+        (state, aux) as `ControlVARTrainStep.step` does. base_params (this
+        rank's shard under tensor parallelism) is left as it was and gets no
+        gradient."""
         base = self.base
+        model = base.model
         lr, wd = base._lr_wd(state.step)
         batch = to_device(batch, base.device)
         state.optimizer.zero_grad(set_to_none=True)
-        params = apply_lora(base_params, state.params, self.lora_cfg)
+        params = apply_lora(base_params, state.params, self.lora_cfg, mesh=model.mesh,
+                            model_cfg=model.cfg)
         aux = base._backward(params, vq_params, batch, generator, mask_first, from_tokens)
-        grad_norm = _clip_and_update(state, base.optim.grad_clip, lr, wd)
+        if model.tp is not None:
+            # a cut kernel's factors got the part of their gradient that
+            # this rank's shard gives; a whole kernel's got all of it
+            cut_keys = lora_cut_keys(state.params, model.cfg, model.tp.model)
+            sum_over_model_([state.params[k][f].grad for k in cut_keys for f in ("A", "B")],
+                            model.tp)
+        grad_norm = _clip_and_update(state, base.optim.grad_clip, lr, wd, _data_group(model))
         return state, dict(aux, lr=lr, wd=wd, grad_norm=grad_norm)
 
 

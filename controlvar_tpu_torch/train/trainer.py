@@ -13,8 +13,10 @@ live on that shard (`opt_state_shardings`, `shard_opt_state`: a whole
 optimizer state from a checkpoint is cut to the shard), the ranks of a
 model group draw the same drop-path and cond-drop masks, and checkpoints
 hold the whole state (`ckpt/orbax_io.py`). Only the primary rank logs and
-writes checkpoints. LoRA fine-tuning is not ported to tensor parallelism
-yet.
+writes checkpoints. LoRA fine-tuning over a tensor-parallel base (the JAX
+Trainer cuts the base and replicates the factors) makes the factors from
+the whole base before it is cut, so every rank holds the same whole
+factors and their moments, and its checkpoints hold them as they are.
 """
 from __future__ import annotations
 
@@ -78,18 +80,16 @@ class Trainer:
                 "from_tokens does not support bidirectional training: token "
                 "shards carry only the mask-first ignore_mask order"
             )
-        if self.model_axis > 1 and self.lora_rank > 0:
-            raise NotImplementedError("LoRA fine-tuning is not ported to tensor parallelism "
-                                      "yet (the JAX Trainer shards the base and replicates "
-                                      "the factors)")
         self.device = resolve_device(self.device)
         self.mesh = make_mesh(model=self.model_axis, cfg=self.model_cfg)
         self.model = ControlVARModel(self.model_cfg, device=self.device, mesh=self.mesh)
         self.vqvae = VQVAE(self.vq_cfg, device=self.device)
         self.steps_per_epoch = self.loader.steps_per_epoch()
         self.set_max_steps(self.optim.epochs * self.steps_per_epoch)
-        self.io = (CheckpointIO(self.ckpt_dir, mesh=self.mesh, cfg=self.model_cfg)
-                   if self.ckpt_dir else None)
+        # a LoRA state (the factors) is whole on every rank, a full one is
+        # the rank's shard
+        self.io = (CheckpointIO(self.ckpt_dir, mesh=None if self.lora_rank else self.mesh,
+                                cfg=self.model_cfg) if self.ckpt_dir else None)
 
     def set_max_steps(self, max_steps: int):
         """Cap the training horizon (e.g. `--steps` smoke runs). Must be
@@ -105,10 +105,12 @@ class Trainer:
     def init_state(self, seed: int = 0, base_params: Optional[Dict] = None) -> TrainState:
         """base_params: pretrained weights (e.g. converted .pth after VAR
         surgery), whole. With lora_rank > 0 they become the frozen LoRA base
-        and the TrainState holds only the (A, B) factors; with model_axis > 1
-        the TrainState holds this rank's shard."""
+        and the TrainState holds only the (A, B) factors, made from the whole
+        tree; with model_axis > 1 the base, or the TrainState, is this rank's
+        shard."""
         params = base_params or self.model.init_params(seed)
         params = tree_to(params, self.device)
+        whole = params
         if self.model.tp is not None:
             params = shard_params(self.mesh, params, self.mesh.model_index, self.model_cfg)
         self._lora_stepper = None
@@ -119,7 +121,7 @@ class Trainer:
             self._lora_stepper = LoRAControlVARTrainStep(
                 self.stepper, LoRAConfig(rank=self.lora_rank))
             self._base_params = params
-            return self._lora_stepper.init_lora_state(generator_for(seed + 1), params,
+            return self._lora_stepper.init_lora_state(generator_for(seed + 1), whole,
                                                       self.optim)
         return init_train_state(params, self.optim)
 
@@ -135,9 +137,9 @@ class Trainer:
 
     def _save(self, step: int, state: TrainState, epoch: int) -> None:
         """The primary rank writes (under tensor parallelism every rank
-        takes part in the gather); every rank waits until the file is whole,
-        so that any of them may restore it."""
-        if is_primary() or self.model.tp is not None:
+        takes part in the gather of a sharded state); every rank waits until
+        the file is whole, so that any of them may restore it."""
+        if is_primary() or self.io.tp is not None:
             self.io.save(step, state, metadata={"epoch": epoch})
         barrier()
 

@@ -560,14 +560,6 @@ def test_make_mesh_guards():
 
 
 OUT_OF_SLICE = {
-    "separator": lambda m: ControlVARModel(ControlVARConfig(**dict(TINY, separator=True)),
-                                           device="cpu", mesh=m),
-    "type_pos": lambda m: ControlVARModel(ControlVARConfig(**dict(TINY, type_pos=True)),
-                                          device="cpu", mesh=m),
-    "shared_aln": lambda m: ControlVARModel(ControlVARConfig(**dict(TINY, shared_aln=True)),
-                                            device="cpu", mesh=m),
-    "bidirectional": lambda m: ControlVARModel(
-        ControlVARConfig(**dict(TINY, bidirectional=True)), device="cpu", mesh=m),
     "var_model": lambda m: VARModel(control_var_config_from_depth(2), device="cpu", mesh=m),
     "kv_window": lambda m: StepwiseJointSampler(_tp_model(m), VQVAE(VQVAEConfig(**VQ),
                                                                     device="cpu"),
@@ -585,11 +577,6 @@ OUT_OF_SLICE = {
     "separate_decoding": lambda m: ControlVARModel(
         ControlVARConfig(**dict(TINY, separate_decoding=True)), device="cpu",
         mesh=m).sample_joint_separate(None, None, None, None, None, None),
-    "lora": lambda m: trainer_mod.Trainer(
-        ControlVARConfig(**TINY), VQVAEConfig(**VQ), OptimConfig(),
-        Loader(SyntheticControlDataset(image_size=64, num_classes=8, patch_nums=(1, 2, 4),
-                                       length=8), batch_size=2), {}, model_axis=2,
-        lora_rank=4, device="cpu"),
 }
 
 
