@@ -209,7 +209,27 @@ Run from the root of a checkout. Phases, each fatal on failure:
      LoRA r16 step over the cut d16 multi_cond base with random B (every
      factor's gradient cosine, both ranks' factors bit-equal); then `cli.main
      train --model_axis 2 --lora 16 --separator --type_pos --bidirectional
-     --steps 1` (K3/K4 32/16) on a second group.
+     --steps 1` (K3/K4 32/16) on a second group;
+ 26. the d30 paths: ControlVAR-d30 multi_cond (cos_attn, 30 heads of 64, C
+     1920, 2.0 B params) at configs/train_imagenetc_d30.yaml's recipe
+     (d30_recipe), the card freed between the parts: (a) K1 at every
+     scale of the conditional (64 CFG rows) and joint (16 rows) paths'
+     stacked caches and K3/K4 at (8, 30, 1360, 64), block-causal and
+     strided, on cos_attn inputs (q and k L2-normalised, q times exp(min(s,
+     log 100)) per head, s uniform in [0, log 200]: scores up to +-100),
+     scale 1, at the d16 checks' limits, with their, the plain versions'
+     and SDPA's times and bounds at the final scale and the training
+     shape; (b) a tiny cos_attn bf16 decode step through K1 and train step
+     through K3/K4 against the fp32 CPU, scale_mul drawn as in (a) and the
+     gates raised; (c) ControlVARTrainStep with the ch-160 VQVAE inside,
+     B=8 pixel batches, remat full (BASELINE config 5): init_params's host
+     seconds and host memory, one warm-up and three timed steps (K3 60, K4
+     30 a step), s/step, peak allocated and reserved memory; (d)
+     SamplingHarness.control_conditioned on 16 seeded control images and
+     (e) SamplingHarness.joint at B=8, each a warm-up and a timed call (K1
+     300, K2 10), img/s and peak memory; (f) `cli.main train` with
+     D30_TRAIN_FLAGS and --steps 2 (K3/K4 120/60, two finite logged
+     losses).
 Prints the card, a `kernels` JSON line (K1-K8) and, last,
 {"ok": true, "device": ...}.
 It exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -272,6 +292,32 @@ K3_LSE_ATOL = 2.0 ** -13
 TRAIN_LOSS_RTOL = 2.0 ** -8
 TRAIN_GRAD_COS = 0.999
 TRAIN_BLOCK_LEAF_COS = 0.999
+# COS_BF16_FLOOR. Under cos_attn with scale_mul up to the clamp (q of norm up
+# to 100, scale 1) and the gates raised, bf16 arithmetic alone misses the two
+# cosine limits above: the tiny step's own bf16 run on the CPU reads a whole-
+# gradient cosine of 0.978 and 0.950 at its worst block leaf (q_bias) against
+# fp32 (0.99998 with scale_mul at its init, log 4; 0.9999 at log 20). A score
+# of magnitude up to 100 moves by ~0.05 when q and k round to bf16, which
+# moves a softmax weight by ~5%. So that step is held against the CPU's own
+# bf16 step's cosines, measured in the same run (_check_train_step).
+# configs/train_imagenetc_d30.yaml as `cli.main train` flags (the card's
+# machine has no pyyaml), synthetic data in place of ImageNet-C; the
+# recipe's pretrained VAR is not in the repository. tests/test_torch_d30.py
+# holds these flags and d30_recipe() to the YAML through both CLIs.
+D30_TRAIN_FLAGS = ("--depth", "30", "--multi_cond", "--drop_path_rate", "0.1", "--lr", "4e-5",
+                   "--wd", "0.08", "--wd_end", "0.08", "--schedule", "lin0", "--batch_size",
+                   "8", "--data", "synthetic")
+COS_SCALE_MAX = 200.0   # scale_mul drawn in [0, log 200]; the model clamps at log 100
+TINY_COS_SEED = 5       # its (2, 2) scale_mul: one head clamped, three not
+
+
+def d30_recipe():
+    """The d30 recipe's model config and OptimConfig (BASELINE config 5)."""
+    from controlvar_tpu_torch.config import OptimConfig, control_var_config_from_depth
+
+    return (control_var_config_from_depth(30, multi_cond=True, drop_path_rate=0.1),
+            OptimConfig(base_lr=4e-5, total_batch_size=8, weight_decay=0.08,
+                        weight_decay_end=0.08, schedule="lin0"))
 
 
 def fail(msg: str) -> None:
@@ -354,6 +400,26 @@ def scale_times(name, cases, depth, call) -> None:
     per_call = [depth * sum(col) for col in zip(*per_scale)]
     print(f"{name} per {call} ({depth} layers x {len(per_scale)} scales): kernel "
           f"{per_call[0]:.4f} ms, sdpa {per_call[1]:.4f} ms")
+
+
+def _k1_times(torch, label, q, ck, cv, li, cur, scale):
+    """K1's, its plain version's and SDPA's times on q (R, H, l, hd) over
+    rows [0, cur) of layer li of the stacked cache, unmasked, with the
+    bound; the kernels-line numbers."""
+    import torch.nn.functional as F
+
+    from controlvar_tpu_torch.ops.attention import decode_attention, decode_attention_plain
+
+    R, H, l, hd = q.shape
+    kk, vv = ck[li, :, :, :cur], cv[li, :, :, :cur]
+    ms = cuda_ms(lambda: decode_attention(q, ck, cv, li, cur, scale), 20)
+    plain_ms = cuda_ms(lambda: decode_attention_plain(q, kk, vv, scale), 5)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, vv, scale=scale), 20)
+    nbytes = 2 * (2 * q.numel() + 2 * R * H * cur * hd)   # q, out, K, V in bf16
+    b_ms, b_by = bound_ms(nbytes, 4 * R * H * l * cur * hd, PEAK_BF16_FLOPS)
+    print(f"K1 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
 def k1_phase(torch, cfg, cfg24, sep_cfg):
@@ -443,20 +509,8 @@ def k1_phase(torch, cfg, cfg24, sep_cfg):
     scale_times("K1", k1_cases(), cfg.depth, "serving call")
 
     def final_scale(label, ck, cv, heads):
-        """K1's, its plain version's and SDPA's times at the serving path's
-        final scale (l 512, cur 1360), unmasked, with the bound."""
-        l, cur = 512, L
-        q = rand_q(l, H=heads)
-        kk, vv = ck[1, :, :, :cur], cv[1, :, :, :cur]
-        ms = cuda_ms(lambda: decode_attention(q, ck, cv, 1, cur, scale), 20)
-        plain_ms = cuda_ms(lambda: decode_attention_plain(q, kk, vv, scale), 5)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, vv, scale=scale), 20)
-        nbytes = 2 * (2 * q.numel() + 2 * R_B * heads * cur * hd)   # q, out, K, V in bf16
-        flops = 4 * R_B * heads * l * cur * hd
-        b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
-        print(f"K1 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        """K1's times at the serving path's final scale (l 512, cur 1360)."""
+        return _k1_times(torch, label, rand_q(512, H=heads), ck, cv, 1, L, scale)
 
     full = final_scale("final scale", ck, cv, H)
     # a tensor-parallel rank's cache at model=2: 8 of the 16 heads
@@ -475,17 +529,9 @@ def k1_phase(torch, cfg, cfg24, sep_cfg):
         errs.append(case(f"K1 d16 separator tensor-parallel rank (8 heads) l={cur - lo} "
                          f"cur={cur}", rand_q(cur - lo, 16, Ht), cks, cvs, si % 2, cur))
     lo, cur = sep_cfg.begin_ends[-1]
-    q = rand_q(cur - lo, 16, Ht)
-    kk, vv = cks[1, :, :, :cur], cvs[1, :, :, :cur]
-    ms = cuda_ms(lambda: decode_attention(q, cks, cvs, 1, cur, scale), 20)
-    plain_ms = cuda_ms(lambda: decode_attention_plain(q, kk, vv, scale), 5)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, vv, scale=scale), 20)
-    b_ms, b_by = bound_ms(2 * (2 * q.numel() + 2 * 16 * Ht * cur * hd),
-                          4 * 16 * Ht * (cur - lo) * cur * hd, PEAK_BF16_FLOPS)
-    print(f"K1 d16 separator tensor-parallel rank (8 heads), final scale (16, 8, {cur - lo}, "
-          f"64) over {cur} rows: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-          f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    tp_sep = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    tp_sep = _k1_times(torch, f"d16 separator tensor-parallel rank (8 heads), final scale "
+                       f"(16, 8, {cur - lo}, 64) over {cur} rows", rand_q(cur - lo, 16, Ht),
+                       cks, cvs, 1, cur, scale)
     del cks, cvs
     return dict(name="decode_attention", route="cuda",
                 source="controlvar_tpu_torch/csrc/decode_attention.cu",
@@ -631,6 +677,87 @@ def _bwd_mags(torch, q, k, v, mask, out, lse, do, scale):
             p.transpose(-1, -2) @ do.float().abs())
 
 
+def _check_k3(torch, name, q, k, v, mask, sc, out, lse):
+    """K3's out and lse against the plain version's, and a second run on
+    the same inputs bit-equal to the first; returns out's largest error."""
+    from controlvar_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+
+    want, want_lse = flash_attention_plain(q, k, v, mask, sc)
+    mag = flash_attention_plain(q, k, v.abs(), mask, sc)[0]
+    err = check_close(f"K3 {name}: out", out, want, mag)
+    lse_err = float((lse - want_lse).abs().max())
+    print(f"K3 {name}: lse max_abs_err={lse_err:.3e}")
+    if not lse_err <= K3_LSE_ATOL:
+        fail(f"K3 {name}: lse error {lse_err:.3e} > {K3_LSE_ATOL:g}")
+    again, again_lse = flash_attention(q, k, v, mask, sc)
+    if not (torch.equal(out, again) and torch.equal(lse, again_lse)):
+        fail(f"K3 {name}: out or lse differs between two runs on the same inputs")
+    print(f"K3 {name}: out, lse bit-equal over two runs")
+    return err
+
+
+def _check_k4(torch, name, q, k, v, do, mask, scale):
+    """K4 against its plain version from the plain forward's out and lse
+    (so only K4 differs), and a second run bit-equal to the first; returns
+    the largest errors of dq, dk and dv."""
+    from controlvar_tpu_torch.ops.attention import (flash_attention_bwd,
+                                                    flash_attention_bwd_plain,
+                                                    flash_attention_plain)
+
+    want, want_lse = flash_attention_plain(q, k, v, mask, scale)
+    got = flash_attention_bwd(q, k, v, mask, want, want_lse, do, scale)
+    ref = flash_attention_bwd_plain(q, k, v, mask, want, want_lse, do, scale)
+    mags = _bwd_mags(torch, q, k, v, mask, want, want_lse, do, scale)
+    errs = [check_close(f"K4 {name}: {gname}", a, b, m, 2.0 ** -16 * float(m.max()))
+            for gname, a, b, m in zip(("dq", "dk", "dv"), got, ref, mags)]
+    del mags
+    # no atomics: a second run on the same inputs gives the same bits
+    again = flash_attention_bwd(q, k, v, mask, want, want_lse, do, scale)
+    for gname, a, b in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a, b):
+            fail(f"K4 {name}: {gname} differs between two runs on the same inputs")
+    print(f"K4 {name}: dq, dk, dv bit-equal over two runs")
+    return errs
+
+
+def _flash_times(torch, label, q, k, v, do, mask, scale):
+    """K3's and K4's times at a training path's shape, strides and
+    precomputed flags, beside their plain versions', SDPA's and their
+    bounds."""
+    import torch.nn.functional as F
+
+    from controlvar_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain, tile_flags)
+
+    B, H, L, hd = q.shape
+    flags = tile_flags(mask)
+    out, lse = flash_attention(q, k, v, mask, scale, flags)
+    ms3 = cuda_ms(lambda: flash_attention(q, k, v, mask, scale, flags), 20)
+    plain3 = cuda_ms(lambda: flash_attention_plain(q, k, v, mask, scale), 3)
+    lib3 = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                          scale=scale), 20)
+    ms4 = cuda_ms(lambda: flash_attention_bwd(q, k, v, mask, out, lse, do, scale, flags), 20)
+    plain4 = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, mask, out, lse, do, scale), 3)
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, scale=scale)
+    lib4 = cuda_ms(lambda: torch.autograd.grad(o_lib, (qq, kk, vv), do, retain_graph=True),
+                   20)
+    n = B * H * L * hd
+    # the work the function needs: the mask's unmasked scores only (about
+    # 62% of L x L at these shapes), 2 matmul FLOP per score and hd for each
+    # product, 2 products in the forward (QK^T, PV) and 5 in the backward
+    # (S, dP, dV, dQ, dK)
+    per_score = B * H * hd * int(mask.sum())
+    b3 = bound_ms(2 * 4 * n + 4 * B * H * L + L * L, 4 * per_score, PEAK_BF16_FLOPS)
+    b4 = bound_ms(2 * 8 * n + 4 * B * H * L + L * L, 10 * per_score, PEAK_BF16_FLOPS)
+    print(f"K3 {label}: kernel {ms3:.4f} ms, plain {plain3:.4f} ms, "
+          f"sdpa {lib3:.4f} ms, bound {b3[0]:.4f} ms ({b3[1]})")
+    print(f"K4 {label}: kernel {ms4:.4f} ms, plain {plain4:.4f} ms, "
+          f"sdpa backward {lib4:.4f} ms, bound {b4[0]:.4f} ms ({b4[1]})")
+    return (ms3, plain3, lib3, b3), (ms4, plain4, lib4, b4)
+
+
 def flash_phase(torch, cfg, var_cfg, sep_cfg):
     """K3 and K4 vs their plain versions at the d16 training shape, at the
     VAR-d16 one (L = 680: a 40-row last tile, the plain block-causal mask),
@@ -638,12 +765,8 @@ def flash_phase(torch, cfg, var_cfg, sep_cfg):
     34-row last tile) and at a small ragged one; times at the three training
     shapes. Returns the two kernels-line entries (at the ControlVAR-d16
     shape)."""
-    import torch.nn.functional as F
-
     from controlvar_tpu_torch.models.masks import attn_mask_for_config
-    from controlvar_tpu_torch.ops.attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-        flash_attention_plain, tile_flags)
+    from controlvar_tpu_torch.ops.attention import flash_attention, tile_flags
 
     g = torch.Generator(device="cuda").manual_seed(4)
     dev, bf, hd, scale = "cuda", torch.bfloat16, cfg.head_dim, cfg.attn_scale
@@ -696,42 +819,12 @@ def flash_phase(torch, cfg, var_cfg, sep_cfg):
              ("d16 separator tensor-parallel rank (8, 8, 1378, 64), block-causal, strided", 8,
               sep_cfg.num_heads // 2, sep_mask, True)]
 
-    def check_k3(name, q, k, v, mask, sc, out, lse):
-        """K3's out and lse against the plain version's, and a second run on
-        the same inputs bit-equal to the first; returns out's largest error."""
-        want, want_lse = flash_attention_plain(q, k, v, mask, sc)
-        mag = flash_attention_plain(q, k, v.abs(), mask, sc)[0]
-        err = check_close(f"K3 {name}: out", out, want, mag)
-        lse_err = float((lse - want_lse).abs().max())
-        print(f"K3 {name}: lse max_abs_err={lse_err:.3e}")
-        if not lse_err <= K3_LSE_ATOL:
-            fail(f"K3 {name}: lse error {lse_err:.3e} > {K3_LSE_ATOL:g}")
-        again, again_lse = flash_attention(q, k, v, mask, sc)
-        if not (torch.equal(out, again) and torch.equal(lse, again_lse)):
-            fail(f"K3 {name}: out or lse differs between two runs on the same inputs")
-        print(f"K3 {name}: out, lse bit-equal over two runs")
-        return err
-
     errs3, errs4 = [], []
     for name, B, H, mask, strided in cases:
         q, k, v, do = inputs(B, H, mask.shape[0], strided)
         out, lse = flash_attention(q, k, v, mask, scale)
-        errs3.append(check_k3(name, q, k, v, mask, scale, out, lse))
-        want, want_lse = flash_attention_plain(q, k, v, mask, scale)
-        # K4 from the plain forward's out and lse, so only K4 differs
-        got = flash_attention_bwd(q, k, v, mask, want, want_lse, do, scale)
-        ref = flash_attention_bwd_plain(q, k, v, mask, want, want_lse, do, scale)
-        mags = _bwd_mags(torch, q, k, v, mask, want, want_lse, do, scale)
-        for gname, a, b, m in zip(("dq", "dk", "dv"), got, ref, mags):
-            errs4.append(check_close(f"K4 {name}: {gname}", a, b, m,
-                                     2.0 ** -16 * float(m.max())))
-        del mags
-        # no atomics: a second run on the same inputs gives the same bits
-        again = flash_attention_bwd(q, k, v, mask, want, want_lse, do, scale)
-        for gname, a, b in zip(("dq", "dk", "dv"), got, again):
-            if not torch.equal(a, b):
-                fail(f"K4 {name}: {gname} differs between two runs on the same inputs")
-        print(f"K4 {name}: dq, dk, dv bit-equal over two runs")
+        errs3.append(_check_k3(torch, name, q, k, v, mask, scale, out, lse))
+        errs4 += _check_k4(torch, name, q, k, v, do, mask, scale)
 
     # K3 alone: rows that attend nowhere (the TPU kernel's P = 1 on every
     # key; their tiles are never skipped), and a scale that is not a power of
@@ -743,39 +836,10 @@ def flash_phase(torch, cfg, var_cfg, sep_cfg):
                            ("d16 train, block-causal, scale 0.9/32", train_mask, 0.9 / 32)):
         q, k, v, _ = inputs(B, H, L, True)
         out, lse = flash_attention(q, k, v, mask, sc)
-        errs3.append(check_k3(name, q, k, v, mask, sc, out, lse))
+        errs3.append(_check_k3(torch, name, q, k, v, mask, sc, out, lse))
 
     def times(label, B, H, mask):
-        """K3's and K4's times at a training path's shape, strides and
-        precomputed flags, beside their plain versions', SDPA's and their
-        bounds."""
-        L = mask.shape[0]
-        q, k, v, do = inputs(B, H, L, True)
-        flags = tile_flags(mask)
-        out, lse = flash_attention(q, k, v, mask, scale, flags)
-        ms3 = cuda_ms(lambda: flash_attention(q, k, v, mask, scale, flags), 20)
-        plain3 = cuda_ms(lambda: flash_attention_plain(q, k, v, mask, scale), 3)
-        lib3 = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                              scale=scale), 20)
-        ms4 = cuda_ms(lambda: flash_attention_bwd(q, k, v, mask, out, lse, do, scale, flags), 20)
-        plain4 = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, mask, out, lse, do, scale), 3)
-        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
-        o_lib = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, scale=scale)
-        lib4 = cuda_ms(lambda: torch.autograd.grad(o_lib, (qq, kk, vv), do, retain_graph=True),
-                       20)
-        n = B * H * L * hd
-        # the work the function needs: the mask's unmasked scores only (about
-        # 62% of L x L at these shapes), 2 matmul FLOP per score and hd for each
-        # product, 2 products in the forward (QK^T, PV) and 5 in the backward
-        # (S, dP, dV, dQ, dK)
-        per_score = B * H * hd * int(mask.sum())
-        b3 = bound_ms(2 * 4 * n + 4 * B * H * L + L * L, 4 * per_score, PEAK_BF16_FLOPS)
-        b4 = bound_ms(2 * 8 * n + 4 * B * H * L + L * L, 10 * per_score, PEAK_BF16_FLOPS)
-        print(f"K3 {label}: kernel {ms3:.4f} ms, plain {plain3:.4f} ms, "
-              f"sdpa {lib3:.4f} ms, bound {b3[0]:.4f} ms ({b3[1]})")
-        print(f"K4 {label}: kernel {ms4:.4f} ms, plain {plain4:.4f} ms, "
-              f"sdpa backward {lib4:.4f} ms, bound {b4[0]:.4f} ms ({b4[1]})")
-        return (ms3, plain3, lib3, b3), (ms4, plain4, lib4, b4)
+        return _flash_times(torch, label, *inputs(B, H, mask.shape[0], True), mask, scale)
 
     (ms3, plain3, lib3, b3), (ms4, plain4, lib4, b4) = times("d16 train shape", B, H, train_mask)
     times("VAR-d16 train shape (8, 16, 680, 64)", 8, var_cfg.num_heads, var_mask)
@@ -1090,9 +1154,11 @@ def flat_fused_phase(torch, cfg12, cfg13):
     return k7, k8
 
 
-def _tiny_train(torch, device, dtype):
+def _tiny_train(torch, device, dtype, cos_attn=False):
     """One pre-tokenized train step of a tiny config (hd = 64, L = 42) from
-    fixed weights and ids; returns (loss, grad_norm, flattened gradients)."""
+    fixed weights and ids; returns (loss, grad_norm, flattened gradients).
+    cos_attn: the config takes it, with the gates raised and scale_mul
+    drawn up to the clamp (random_scale_mul)."""
     from controlvar_tpu_torch.config import ControlVARConfig, OptimConfig, VQVAEConfig
     from controlvar_tpu_torch.models.control_var import ControlVARModel
     from controlvar_tpu_torch.models.vqvae import VQVAE
@@ -1101,13 +1167,17 @@ def _tiny_train(torch, device, dtype):
 
     cfg = ControlVARConfig(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4),
                            vocab_size=128, cvae=32, num_classes=8, multi_cond=True,
-                           cond_drop_rate=0.0)
+                           cond_drop_rate=0.0, cos_attn=cos_attn)
     vq_cfg = VQVAEConfig(ch=32, patch_nums=(1, 2, 4), vocab_size=128)
     model, vqvae = ControlVARModel(cfg, device=device), VQVAE(vq_cfg, device=device)
     step = ControlVARTrainStep(model, vqvae, OptimConfig(), max_steps=100, warmup_steps=2,
                                device=device)
     step.compute_dtype = dtype
-    state = init_train_state(model.init_params(1), OptimConfig())
+    params = model.init_params(1)
+    if cos_attn:
+        raise_gates(params)["blocks"]["scale_mul"] = random_scale_mul(
+            torch, (2, 2), TINY_COS_SEED).to(device)
+    state = init_train_state(params, OptimConfig())
     g = torch.Generator().manual_seed(3)
     ids = lambda: [torch.randint(0, 128, (4, p * p), generator=g) for p in cfg.patch_nums]
     batch = {"ctrl_ids": ids(), "img_ids": ids(), "cls": torch.randint(0, 8, (4,), generator=g),
@@ -1116,6 +1186,28 @@ def _tiny_train(torch, device, dtype):
     grads = {name: leaf.grad.flatten().double().cpu()
              for name, leaf in named_leaves(state.params)}
     return float(aux["loss"]), float(aux["grad_norm"]), grads
+
+
+def _decode_inputs(torch, C):
+    """Two decode steps' inputs, 4 rows of 2 and then 8 tokens of width C,
+    and their condition, from a seed."""
+    gx = torch.Generator().manual_seed(2)
+    return tuple(torch.randn(4, n, C, generator=gx) for n in (2, 8)) + (
+        torch.randn(4, C, generator=gx),)
+
+
+def _decode_two_steps(torch, cfg, blocks, xs, device, dtype, fused=False, **kw):
+    """Two decode steps of `blocks` over the stacked cache of cfg's layout
+    (the fused one on request); y of the second, fp32 on the CPU."""
+    from controlvar_tpu_torch.device import tree_to
+    from controlvar_tpu_torch.models import transformer as tfm
+
+    bp = tree_to(blocks, device, dtype)
+    x0, x1, cond = (t.to(device) for t in xs)
+    ck, cv = tfm.init_kv_cache(cfg, 4, cfg.seq_len, dtype, device, fused=fused)
+    _, ck, cv = tfm.blocks_decode(bp, x0.to(dtype), cond, cfg, ck, cv, 0, **kw)
+    y, _, _ = tfm.blocks_decode(bp, x1.to(dtype), cond, cfg, ck, cv, 2, **kw)
+    return y.float().cpu()
 
 
 def reference_phase(torch):
@@ -1156,20 +1248,10 @@ def reference_phase(torch):
         apart."""
         return raise_gates(ControlVARModel(cfg, device="cpu").init_params(1))["blocks"]
 
-    def inputs(C):
-        gx = torch.Generator().manual_seed(2)
-        return tuple(torch.randn(4, n, C, generator=gx) for n in (2, 8)) + (
-            torch.randn(4, C, generator=gx),)
+    inputs = functools.partial(_decode_inputs, torch)
 
-    def run(device, dtype, cfg=cfg, p=gated(cfg), xs=inputs(128), fused=False, **kw):
-        """Two decode steps over the stacked cache of cfg's layout (the fused
-        one on request); y of the second."""
-        bp = tree_to(p, device, dtype)
-        x0, x1, cond = (t.to(device) for t in xs)
-        ck, cv = tfm.init_kv_cache(cfg, 4, cfg.seq_len, dtype, device, fused=fused)
-        _, ck, cv = tfm.blocks_decode(bp, x0.to(dtype), cond, cfg, ck, cv, 0, **kw)
-        y, _, _ = tfm.blocks_decode(bp, x1.to(dtype), cond, cfg, ck, cv, 2, **kw)
-        return y.float().cpu()
+    def run(device, dtype, cfg=cfg, p=gated(cfg), xs=inputs(128), **kw):
+        return _decode_two_steps(torch, cfg, p, xs, device, dtype, **kw)
 
     shared_cfg = ControlVARConfig(embed_dim=128, num_heads=2, shared_aln=True, **tiny)
     shared_p = raise_gates(ControlVARModel(shared_cfg, device="cpu").init_params(1))
@@ -1234,6 +1316,22 @@ def reference_phase(torch):
     print("reference: the native RLE library builds and loads (native.available())")
 
 
+def random_scale_mul(torch, shape, seed):
+    """cos_attn's scale_mul drawn uniform in [0, log COS_SCALE_MAX] from a
+    seed: q is scaled by exp(min(s, log 100)), so the heads above log 100
+    clamp (scores up to +-100 at scale 1) and the rest do not; fails unless
+    both kinds occur."""
+    import math
+
+    s = torch.rand(shape, generator=torch.Generator().manual_seed(seed)) * math.log(COS_SCALE_MAX)
+    clamped = s > math.log(100.0)
+    print(f"scale_mul {tuple(shape)} from seed {seed}: {int(clamped.sum())} of {s.numel()} "
+          f"heads clamped at log 100, the largest exp(s) {math.exp(float(s.max())):.1f}")
+    if not bool(clamped.any()) or bool(clamped.all()):
+        fail(f"scale_mul from seed {seed}: {int(clamped.sum())} of {s.numel()} heads clamped")
+    return s
+
+
 def raise_gates(params):
     """params with the AdaLN gates raised in place (attention by 10, FFN by
     1; the ada_lin bias, or ada_gss under shared_aln): at init they are 1e-3
@@ -1249,12 +1347,23 @@ def raise_gates(params):
     return params
 
 
-def _check_train_step(torch, label, run):
+def _grad_cosines(torch, got, want):
+    """The cosine of the whole flattened gradient and of each block leaf's."""
+    cosine = lambda a, b: float(a @ b / (a.norm() * b.norm()))
+    return (cosine(torch.cat(list(got.values())), torch.cat(list(want.values()))),
+            {name: cosine(got[name], want[name]) for name in want if name.startswith("blocks/")})
+
+
+def _check_train_step(torch, label, run, bf16_floor=False):
     """`run(torch, device, dtype)`, a tiny-config train step, bf16 on the
     card against fp32 on the CPU: the loss within TRAIN_LOSS_RTOL, the
     cosine of the whole gradient and of each block leaf's within theirs,
     and the card's K3/K4 launches (2 layers: forward and recompute, and one
-    backward each)."""
+    backward each). bf16_floor: where bf16 arithmetic alone misses those
+    cosines (cos_attn with heads at the clamp, COS_BF16_FLOOR), the CPU's
+    own bf16 step on the same inputs is run too, and each cosine of the
+    card's step is held within twice its distance from 1, never tighter
+    than the limits above."""
     from controlvar_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
 
     flash_attention.launches = flash_attention_bwd.launches = 0
@@ -1262,25 +1371,31 @@ def _check_train_step(torch, label, run):
     loss_g, norm_g, grad_g = run(torch, "cuda", torch.bfloat16)
     counts = (flash_attention.launches, flash_attention_bwd.launches)
     rel = abs(loss_g - loss_c) / abs(loss_c)
-    cosine = lambda a, b: float(a @ b / (a.norm() * b.norm()))
-    cos = cosine(torch.cat(list(grad_g.values())), torch.cat(list(grad_c.values())))
-    leaf_cos = {name: cosine(grad_g[name], grad_c[name])
-                for name in grad_c if name.startswith("blocks/")}
-    worst = min(leaf_cos, key=leaf_cos.get)
+    cos, leaf_cos = _grad_cosines(torch, grad_g, grad_c)
+    cos_lim, leaf_lim = TRAIN_GRAD_COS, dict.fromkeys(leaf_cos, TRAIN_BLOCK_LEAF_COS)
+    if bf16_floor:
+        floor, floor_leaf = _grad_cosines(torch, run(torch, "cpu", torch.bfloat16)[2], grad_c)
+        widen = lambda base, c: min(base, 1.0 - 2.0 * (1.0 - c))
+        cos_lim = widen(cos_lim, floor)
+        leaf_lim = {name: widen(leaf_lim[name], c) for name, c in floor_leaf.items()}
+        print(f"reference: {label}, the CPU's own bf16 step vs fp32: gradient cosine "
+              f"{floor:.6f}; each block leaf's: " + ", ".join(
+                  f"{name} {c:.6f}" for name, c in sorted(floor_leaf.items())))
+    worst = min(leaf_cos, key=lambda name: (leaf_cos[name] - leaf_lim[name]))
     print(f"reference: bf16 GPU {label} vs fp32 CPU: loss {loss_g:.6f} vs {loss_c:.6f} "
           f"(relative {rel:.3e}), grad_norm {norm_g:.6f} vs {norm_c:.6f}, gradient "
-          f"cosine {cos:.6f}, launches K3={counts[0]} K4={counts[1]}")
-    print(f"reference: {label}, gradient cosine of each block leaf: " + ", ".join(
-        f"{name} {c:.6f}" for name, c in sorted(leaf_cos.items())))
+          f"cosine {cos:.6f} (limit {cos_lim:.6f}), launches K3={counts[0]} K4={counts[1]}")
+    print(f"reference: {label}, gradient cosine of each block leaf (limit): " + ", ".join(
+        f"{name} {c:.6f} ({leaf_lim[name]:.6f})" for name, c in sorted(leaf_cos.items())))
     if counts != (4, 2):
         fail(f"reference: {label} launches (K3, K4) = {counts}, expected (4, 2)")
     if not rel <= TRAIN_LOSS_RTOL:
         fail(f"reference: {label} loss relative difference {rel:.3e} > {TRAIN_LOSS_RTOL:g}")
-    if not cos >= TRAIN_GRAD_COS:
-        fail(f"reference: {label} gradient cosine {cos:.6f} < {TRAIN_GRAD_COS}")
-    if not leaf_cos[worst] >= TRAIN_BLOCK_LEAF_COS:
+    if not cos >= cos_lim:
+        fail(f"reference: {label} gradient cosine {cos:.6f} < {cos_lim:.6f}")
+    if not leaf_cos[worst] >= leaf_lim[worst]:
         fail(f"reference: {label} gradient cosine of {worst} {leaf_cos[worst]:.6f} < "
-             f"{TRAIN_BLOCK_LEAF_COS}")
+             f"{leaf_lim[worst]:.6f}")
 
 
 def _pixel_batch(torch, B, num_classes, seed, control=True):
@@ -3403,6 +3518,285 @@ def cli_phase(torch, cfg, seed: int = 7):
     return counts, cli_img_s, bare_img_s, cli_png / cli_loop
 
 
+def _host_rss_gib() -> float:
+    with open("/proc/self/status") as f:
+        return next(int(line.split()[1]) for line in f if line.startswith("VmRSS:")) / 2 ** 20
+
+
+def _with_host_peak(fn):
+    """fn() with its host seconds and the peak of this process's resident
+    memory above its start (GiB), read every 10 ms by a thread."""
+    import threading
+
+    base = _host_rss_gib()
+    peak, done = [base], threading.Event()
+
+    def poll():
+        while not done.wait(0.01):
+            peak[0] = max(peak[0], _host_rss_gib())
+
+    thread = threading.Thread(target=poll)
+    thread.start()
+    t = time.perf_counter()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        thread.join()
+    return out, time.perf_counter() - t, peak[0] - base
+
+
+def d30_kernel_phase(torch, cfg):
+    """K1 at every scale of the d30 conditional (64 CFG rows) and joint (16)
+    paths and K3/K4 at the d30 training shape (8, 30, 1360, 64), on cos_attn
+    inputs: q and k L2-normalised, q times exp(min(s, log 100)) per head
+    with s from random_scale_mul (scores up to +-100), scale 1; the limits
+    of the d16 checks, and the times at the final scale and the training
+    shape. Returns {kernel: {path: times}}."""
+    import math
+
+    from controlvar_tpu_torch.models.masks import attn_mask_for_config
+    from controlvar_tpu_torch.ops.attention import (decode_attention, decode_attention_plain,
+                                                    flash_attention)
+
+    g = torch.Generator(device="cuda").manual_seed(30)
+    dev, bf, H, hd, L = "cuda", torch.bfloat16, cfg.num_heads, cfg.head_dim, cfg.seq_len
+    sm = torch.exp(torch.clamp(random_scale_mul(torch, (H,), 30), max=math.log(100.0))).to(dev)
+    unit = lambda x: x / x.norm(dim=-1, keepdim=True)
+
+    def qkv(B, l):
+        """The strided (B, H, l, hd) q, k, v views of one fused QKV output
+        after cos_attn's normalisation, as the blocks give them."""
+        x = torch.randn(B, l, 3, H, hd, generator=g, device=dev)
+        x[:, :, 0] = unit(x[:, :, 0]) * sm[:, None]
+        x[:, :, 1] = unit(x[:, :, 1])
+        return x.to(bf).permute(2, 0, 3, 1, 4)
+
+    errs, times = {"K1": [], "K3": [], "K4": []}, {"K1": {}, "K3": {}, "K4": {}}
+    for rows, path in ((64, "conditional"), (16, "joint")):
+        ck = unit(torch.randn(2, rows, H, L, hd, generator=g, device=dev)).to(bf)
+        cv = torch.randn(2, rows, H, L, hd, generator=g, device=dev).to(bf)
+        for si, (lo, cur) in enumerate(cfg.begin_ends):
+            q = qkv(rows, cur - lo)[0]
+            kk, vv = ck[si % 2, :, :, :cur], cv[si % 2, :, :, :cur]
+            errs["K1"].append(check_close(
+                f"K1 d30 {path} ({rows} rows x {H} heads, cos_attn) l={cur - lo} cur={cur}",
+                decode_attention(q, ck, cv, si % 2, cur, 1.0),
+                decode_attention_plain(q, kk, vv, 1.0), decode_attention_plain(q, kk, vv.abs(), 1.0)))
+        lo = cfg.begin_ends[-1][0]
+        times["K1"][path] = _k1_times(
+            torch, f"d30 {path} final scale ({rows}, {H}, {L - lo}, {hd}) over {L} rows, cos_attn",
+            qkv(rows, L - lo)[0], ck, cv, 1, L, 1.0)
+        del ck, cv
+        torch.cuda.empty_cache()
+    mask = torch.from_numpy(attn_mask_for_config(cfg)).to(dev)
+    name = f"d30 train (8, {H}, {L}, {hd}), block-causal, strided, cos_attn, scale 1"
+    q, k, v = qkv(8, L)
+    do = torch.randn(8, L, H, hd, generator=g, device=dev).to(bf).transpose(1, 2)
+    out, lse = flash_attention(q, k, v, mask, 1.0)
+    errs["K3"].append(_check_k3(torch, name, q, k, v, mask, 1.0, out, lse))
+    errs["K4"] += _check_k4(torch, name, q, k, v, do, mask, 1.0)
+    del out, lse
+    t3, t4 = _flash_times(torch, f"d30 train shape (8, {H}, {L}, {hd}), cos_attn", q, k, v, do,
+                          mask, 1.0)
+    for kname, (ms, plain, lib, b) in (("K3", t3), ("K4", t4)):
+        times[kname]["train"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0],
+                                     bound_by=b[1])
+    for kname, e in errs.items():
+        times[kname]["max_abs_err"] = max(e)
+    return times
+
+
+def d30_reference(torch):
+    """Small inputs with cos_attn against the CPU: one bf16 decode step
+    through K1 and one bf16 train step through K3/K4 against fp32, with
+    scale_mul from random_scale_mul and the gates raised."""
+    from controlvar_tpu_torch.config import ControlVARConfig
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.ops.attention import decode_attention
+
+    cfg = ControlVARConfig(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4),
+                           vocab_size=64, cvae=32, num_classes=8, multi_cond=True,
+                           cos_attn=True)
+    blocks = raise_gates(ControlVARModel(cfg, device="cpu").init_params(1))["blocks"]
+    blocks["scale_mul"] = random_scale_mul(torch, (2, 2), TINY_COS_SEED)
+    xs = _decode_inputs(torch, 128)
+    want = _decode_two_steps(torch, cfg, blocks, xs, "cpu", torch.float32)
+    decode_attention.launches = 0
+    got = _decode_two_steps(torch, cfg, blocks, xs, "cuda", torch.bfloat16)
+    rel = float((got - want).norm() / want.norm())
+    print(f"reference: bf16 GPU cos_attn decode step (K1) vs fp32 CPU: relative error "
+          f"{rel:.3e}, {decode_attention.launches} launches")
+    if rel > 2e-2:
+        fail(f"reference: cos_attn decode step relative error {rel:.3e} > 2e-2")
+    if decode_attention.launches != 4:
+        fail(f"reference: cos_attn decode step launched K1 {decode_attention.launches} "
+             f"times, not 4")
+    _check_train_step(torch, "cos_attn train step",
+                      functools.partial(_tiny_train, cos_attn=True), bf16_floor=True)
+
+
+def d30_train_phase(torch, cfg, optim, profile: bool):
+    """BASELINE config 5 on the card: ControlVARTrainStep at the d30
+    recipe, the ch-160 VQVAE frozen inside, B=8 pixel batches, remat full,
+    one warm-up and three timed steps (K3 60, K4 30 a step). Returns the
+    params after the steps (no gradients) and the numbers."""
+    import math
+
+    from controlvar_tpu_torch.config import VQVAEConfig
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.train.param_groups import named_leaves
+    from controlvar_tpu_torch.train.train_step import ControlVARTrainStep, init_train_state
+
+    B = 8
+    model, vqvae = ControlVARModel(cfg), VQVAE(VQVAEConfig())
+    params, init_s, init_gib = _with_host_peak(lambda: model.init_params(0))
+    n_params = sum(leaf.numel() for _, leaf in named_leaves(params))
+    print(f"d30 train path: init_params(0) of {n_params / 1e9:.4f} B params: {init_s:.2f} s of "
+          f"host time, {init_gib:.2f} GiB of host memory above the start at its peak")
+    state = init_train_state(params, optim)
+    stepper = ControlVARTrainStep(model, vqvae, optim, max_steps=1000, warmup_steps=10)
+    vq_params = vqvae.init_params(1)
+    batch = _pixel_batch(torch, B, cfg.num_classes, 5)
+    head0 = state.params["head"]["kernel"].detach().clone()
+    gen = torch.Generator().manual_seed(6)
+    expect = _launches_per_step(cfg.depth, "full")
+    s_step, peak, loss0 = _timed_steps(
+        torch, "d30 train path", lambda: stepper.step(state, vq_params, batch, gen)[1], expect,
+        3, B, "train_d30" if profile else None)
+    reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    print(f"d30 train path: step-0 loss {loss0:.5f}, ln V = {math.log(cfg.vocab_size):.5f}; "
+          f"peak allocated {peak:.2f} GiB, peak reserved {reserved:.2f} GiB (timed steps)")
+    if abs(loss0 - math.log(cfg.vocab_size)) > 0.5:
+        fail(f"d30 train path: step-0 loss {loss0:.4f} is not near ln V")
+    if float((state.params["head"]["kernel"].detach() - head0).abs().max()) == 0.0:
+        fail("d30 train path: the params did not change")
+    for _, leaf in named_leaves(state.params):
+        leaf.grad = None
+        leaf.requires_grad_(False)
+    return state.params, dict(s_step=s_step, peak=peak, reserved=reserved, init_s=init_s,
+                              init_gib=init_gib, launches=expect)
+
+
+def _generation_calls(torch, label, call, B, expect, profile_tag=None):
+    """One warm-up and one timed call(seed) -> canvases, each with the K1/K2
+    counts set to 0 just before it and held to `expect` just after, every
+    canvas (B, 256, 256, 3), finite and in [0, 1]; with profile_tag, one
+    profiled call. Returns (img/s, peak GiB of the timed call)."""
+    from controlvar_tpu_torch.ops.attention import decode_attention
+    from controlvar_tpu_torch.ops.sample_kernel import sample_top_k_top_p_bisect
+
+    def one(seed):
+        _reset(decode_attention, sample_top_k_top_p_bisect)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = call(seed)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = (decode_attention.launches, sample_top_k_top_p_bisect.launches)
+        if counts != expect:
+            fail(f"{label}: launches (K1, K2) = {counts}, expected {expect}")
+        for c in out:
+            if tuple(c.shape) != (B, 256, 256, 3) or not torch.isfinite(c).all():
+                fail(f"{label}: bad canvas {tuple(c.shape)}")
+            if float(c.min()) < 0.0 or float(c.max()) > 1.0:
+                fail(f"{label}: canvas outside [0, 1]")
+        return dt
+
+    dt_warm = one(10)
+    torch.cuda.reset_peak_memory_stats()
+    dt = one(11)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{label}: warm-up call {dt_warm:.3f} s; timed call {dt:.4f} s for {B} images = "
+          f"{B / dt:.3f} img/s; peak memory {peak:.2f} GiB; launches K1={expect[0]} "
+          f"K2={expect[1]}")
+    if profile_tag:
+        busy, wall, by_cat = device_profile(torch, lambda: one(12), profile_tag)
+        print(f"{profile_tag} breakdown: profiled call {wall:.2f} ms, device busy {busy:.2f} "
+              f"ms, idle share {1 - busy / wall:.4f} of the profiled call, "
+              f"{1 - busy / (dt * 1e3):.4f} of the timed call")
+        for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+            print(f"{profile_tag} breakdown: {cat}: {ms:.2f} ms")
+    return B / dt, peak
+
+
+def d30_phase(torch, profile: bool):
+    """The d30 paths (module docstring, phase 26): (a) the kernels at d30
+    shapes, (b) the small cos_attn reference, (c) the train step, (d) the
+    conditional call, (e) the joint call, (f) `cli.main train --depth 30`.
+    The card is freed between them."""
+    import io
+    import math
+
+    from controlvar_tpu_torch.cli import main as cli
+    from controlvar_tpu_torch.config import SampleConfig, VQVAEConfig
+    from controlvar_tpu_torch.eval.harness import SamplingHarness
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+
+    cfg, optim = d30_recipe()
+    wall = time.time()
+    phase("d30 (a): K1, K3 and K4 at the d30 shapes on cos_attn inputs, scale 1")
+    kernels = d30_kernel_phase(torch, cfg)
+    torch.cuda.empty_cache()
+    phase("d30 (b): small-input cos_attn reference")
+    d30_reference(torch)
+    phase("d30 (c): ControlVAR-d30 train step (BASELINE config 5), B=8")
+    params, train = d30_train_phase(torch, cfg, optim, profile)
+    torch.cuda.empty_cache()
+
+    model, vqvae = ControlVARModel(cfg), VQVAE(VQVAEConfig())
+    harness = SamplingHarness(model, vqvae, SampleConfig())
+    params = harness.prepare_params(params)
+    torch.cuda.empty_cache()
+    vq_params = vqvae.init_params(1)
+    S, D = cfg.num_scales, cfg.depth
+    phase("d30 (d): control-conditioned generation, B=16 (4-way CFG, 64 rows)")
+    g = torch.Generator().manual_seed(3)
+    labels = torch.randint(0, cfg.num_classes, (16,), generator=g)
+    cond_type = torch.randint(0, 4, (16,), generator=g)
+    imgs = (torch.rand(16, 256, 256, 3, generator=g) * 2 - 1).cuda()
+    cond = _generation_calls(
+        torch, "d30 conditional path", lambda seed: harness.control_conditioned(
+            params, vq_params, labels, cond_type, torch.Generator().manual_seed(seed), imgs),
+        16, (D * S, S), "serve_d30" if profile else None)
+    torch.cuda.empty_cache()
+    phase("d30 (e): joint generation, B=8 (2-way CFG 4.0, 16 rows), stacked cache")
+    labels8, types8 = torch.arange(8), torch.arange(8) % 4
+    joint = _generation_calls(
+        torch, "d30 joint path", lambda seed: harness.joint(
+            params, vq_params, labels8, types8, torch.Generator().manual_seed(seed)),
+        8, (D * S, S), "joint_d30" if profile else None)
+    del params, vq_params, harness
+    torch.cuda.empty_cache()
+
+    phase("d30 (f): cli.main train --depth 30 with the d30 recipe's flags, two steps")
+    wrappers = _kernel_wrappers()
+    _reset(*wrappers)
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        cli.main(["train", *D30_TRAIN_FLAGS, "--steps", "2", "--log_every", "1",
+                  "--num_workers", "4"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t
+    print(log.getvalue(), end="")
+    counts = dict(zip(KERNEL_NAMES, (w.launches for w in wrappers)))
+    losses = [float(x) for x in re.findall(r"(?:^| )loss=(\S+)", log.getvalue(), re.M)]
+    print(f"d30 cli train: {cli_s:.2f} s, launches {counts}, losses {losses}")
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update(K3=2 * 2 * D, K4=2 * D)
+    if counts != want:
+        fail(f"d30 cli train: launches {counts}, expected {want}")
+    if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+        fail(f"d30 cli train: logged losses {losses}, expected two finite ones")
+    torch.cuda.empty_cache()
+    print(f"d30 phase: {time.time() - wall:.1f} s")
+    return dict(kernels=kernels, train=train, cond=cond, joint=joint, cli_s=cli_s)
+
+
 def category(kernel_name: str) -> str:
     """The device-time category of a kernel (CATEGORIES), else "other"."""
     return next((c for c, keys in CATEGORIES if any(k in kernel_name for k in keys)), "other")
@@ -3594,6 +3988,10 @@ def main() -> None:
           "shared_aln and bidirectional, LoRA r16, from tokens with grad_accum 2, over model=2 "
           "on this card (gloo); train --model_axis 2 --lora 16 with the options")
     tp_modes = tp_modes_phase(torch, smi)
+    torch.cuda.empty_cache()
+    phase("the d30 paths: ControlVAR-d30 (cos_attn, 30 heads): kernels at its shapes, a small "
+          "cos_attn reference, the train step, conditional and joint generation, cli train")
+    d30 = d30_phase(torch, profile)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3631,6 +4029,16 @@ def main() -> None:
     print("phase 25 launches a rank (K1, K2, K3, K4): " + json.dumps(tp_modes["counts"])
           + "; one device: " + json.dumps(tp_modes["one_counts"])
           + f"; phase {tp_modes['wall']:.1f} s")
+    tr = d30["train"]
+    print(f"d30 (cos_attn, 30 heads): train step {tr['s_step']:.4f} s/step "
+          f"({8 / tr['s_step']:.3f} img/s), peak allocated {tr['peak']:.2f} GiB, reserved "
+          f"{tr['reserved']:.2f} GiB, K3/K4 {tr['launches'][0]}/{tr['launches'][1]} a step, "
+          f"init_params {tr['init_s']:.2f} s and {tr['init_gib']:.2f} GiB of host memory; "
+          f"conditional B=16 {d30['cond'][0]:.3f} img/s at {d30['cond'][1]:.2f} GiB; joint B=8 "
+          f"{d30['joint'][0]:.3f} img/s at {d30['joint'][1]:.2f} GiB; cli train (two steps, "
+          f"init included) {d30['cli_s']:.2f} s; on")
+    print(smi)
+    print("d30 shapes (cos_attn, scale 1): " + json.dumps(d30["kernels"]))
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in (k1, k2, k3, k4, k5, k6, k7, k8)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -81,6 +81,10 @@ def var_to_control_var(var_params: Params, fresh_control_params: Params,
     input, so training it leaves both as they were."""
     if cfg.mask_factor != 2:
         raise ValueError("surgery is defined for interleave_append (mask_factor 2)")
+    if cfg.cos_attn and "scale_mul" not in var_params["blocks"]:
+        # the JAX package grafts such a tree and fails at its first forward
+        raise ValueError("surgery into a cos_attn ControlVAR needs the VAR tree's "
+                         "blocks/scale_mul, which a VAR built without cos_attn lacks")
     g = generator_for(seed)
     out = dict(fresh_control_params)
     for name in ("word_embed", "class_emb", "lvl_embed", "blocks", "head_nm"):

@@ -326,13 +326,22 @@ def sum_over_model_(tensors: Sequence[torch.Tensor], mesh) -> None:
         offset += t.numel()
 
 
+def square_sum(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The fp64 sum of the squares of every element of `tensors` (0 for
+    none). fp64, as the JAX package's pairwise fp32 sums are close to
+    exact: torch's fp32 norm on the CPU sums in order and reads 0.3% low
+    over the 2.2e7 elements of a d30-width qkv kernel's gradient."""
+    if not tensors:
+        return torch.zeros((), dtype=torch.float64)
+    return torch.stack([torch.linalg.vector_norm(t, dtype=torch.float64) ** 2
+                        for t in tensors]).sum()
+
+
 def sum_of_squares(grads: Sequence[torch.Tensor], split: Sequence[bool], mesh) -> torch.Tensor:
     """The fp32 sum of squares of every gradient of the whole model from
     this rank's shard: the cut leaves' squares summed over the model group,
     each whole leaf counted once."""
-    sq = lambda gs: (torch.stack([torch.linalg.vector_norm(g.float()) ** 2 for g in gs]).sum()
-                     if gs else torch.zeros((), device=grads[0].device))
-    cut_sq = sq([g for g, s in zip(grads, split) if s])
-    whole_sq = sq([g for g, s in zip(grads, split) if not s])
+    cut_sq = square_sum([g for g, s in zip(grads, split) if s]).to(grads[0].device)
+    whole_sq = square_sum([g for g, s in zip(grads, split) if not s]).to(grads[0].device)
     dist.all_reduce(cut_sq, group=mesh.model_group)
-    return cut_sq + whole_sq
+    return (cut_sq + whole_sq).float()

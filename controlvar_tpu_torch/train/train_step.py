@@ -53,8 +53,8 @@ from controlvar_tpu_torch.models.var import VARModel
 from controlvar_tpu_torch.models.vqvae import VQVAE
 from controlvar_tpu_torch.parallel.distributed import (all_reduce_sum, average_gradients,
                                                        group_size)
-from controlvar_tpu_torch.parallel.tensor import (leaf_split, lora_cut_keys, sum_of_squares,
-                                                  sum_over_model_)
+from controlvar_tpu_torch.parallel.tensor import (leaf_split, lora_cut_keys, square_sum,
+                                                  sum_of_squares, sum_over_model_)
 from controlvar_tpu_torch.train.lr_schedule import lr_wd_at_step
 from controlvar_tpu_torch.train.param_groups import decay_groups, named_leaves
 
@@ -204,8 +204,7 @@ def _clip_and_update(state: TrainState, grad_clip: float, lr: float, wd: float,
     average_gradients([leaf for _, leaf in named], group=group)
     grads = [leaf.grad for _, leaf in named if leaf.grad is not None]
     if tp is None:
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        grad_norm = torch.sqrt(square_sum(grads)).float()
     else:
         split = [leaf_split(name, cfg, tp.model) is not None
                  for name, leaf in named if leaf.grad is not None]
