@@ -219,7 +219,9 @@ Run from the root of a checkout. Phases, each fatal on failure:
      log 100)) per head, s uniform in [0, log 200]: scores up to +-100),
      scale 1, at the d16 checks' limits, with their, the plain versions'
      and SDPA's times and bounds at the final scale and the training
-     shape; (b) a tiny cos_attn bf16 decode step through K1 and train step
+     shape, and the same at a model=2 rank's shapes (15 of the 30 heads:
+     K1 at the joint path's final scale (16, 15, 512, 64), K3/K4 at (8,
+     15, 1360, 64)); (b) a tiny cos_attn bf16 decode step through K1 and train step
      through K3/K4 against the fp32 CPU, scale_mul drawn as in (a) and the
      gates raised; (c) ControlVARTrainStep with the ch-160 VQVAE inside,
      B=8 pixel batches, remat full (BASELINE config 5): init_params's host
@@ -229,7 +231,29 @@ Run from the root of a checkout. Phases, each fatal on failure:
      (e) SamplingHarness.joint at B=8, each a warm-up and a timed call (K1
      300, K2 10), img/s and peak memory; (f) `cli.main train` with
      D30_TRAIN_FLAGS and --steps 2 (K3/K4 120/60, two finite logged
-     losses).
+     losses);
+ 27. the parity tooling: eval/parity.py and `cli.main parity` on .pth
+     files that the port's exporter writes from seeds, against a stub of
+     the upstream checkout's `models` package (PARITY_STUB: the port's own
+     modules on the CPU in fp32; the card's machine has neither the
+     checkout nor the released weights), every count 0 before and after
+     (the parity path runs no kernel): the ch-160 VQVAE's token streams of
+     4 seeded 256x256 images at the 10 scales, bitwise, and the d16
+     multi_cond model's (gates raised) teacher-forced logits at B=2 with
+     use_flash=False on the card, within 5e-3 with every argmax equal;
+     then `parity --depth 16 --ckpt --out` through the CLI, its report the
+     direct call's;
+ 28. ControlVAR-d30 over model=2: the one-device joint call (B=8) and train
+     step (the d30 recipe, B=8 pixel batches) here on init_params(0) with
+     the gates raised, this process's d30 tree then freed; two ranks of
+     this script (`--d30-tp-rank`) on this card in a gloo group, 15 heads
+     each (the MLP, ada_lin and head cut): a joint call with the ranks'
+     generators seeded apart (K1 300, K2 10 a rank; their ids equal), one
+     on the one-device call's ids whose CFG branches' logits at scales 1
+     and 9 agree with that call's (TP_LOGIT_REL_L2), and one train step
+     (K3/K4 60/30 a rank) held at phase 24's limits on the loss, grad_norm
+     and the gathered params and gradients of layers 0 and 29 and of every
+     leaf outside the blocks.
 Prints the card, a `kernels` JSON line (K1-K8) and, last,
 {"ok": true, "device": ...}.
 It exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -2776,7 +2800,7 @@ def tp_rank_main(rank: int, port: str, port_cli: str, directory: str) -> None:
     kernels = (decode_attention, sample_top_k_top_p_bisect, flash_attention, flash_attention_bwd)
     cfg = control_var_config_from_depth(16, multi_cond=True)
     distributed.initialize(f"localhost:{port}", 2, rank, backend="gloo")
-    mesh = make_mesh(model=2, cfg=cfg)
+    mesh = make_mesh(model=2)
     res = {"rank": rank, "mesh": [mesh.data, mesh.model, mesh.data_index, mesh.model_index]}
     model, vqvae, params, vq_params = _tp_models(torch, cfg, mesh)
     res["heads"] = params["blocks"]["qkv_kernel"].shape[-1] // (3 * cfg.head_dim)
@@ -3038,7 +3062,7 @@ def tp_modes_rank_main(rank: int, port: str, port_cli: str, directory: str) -> N
                                            bidirectional=True)
     base_cfg = control_var_config_from_depth(16, multi_cond=True)
     distributed.initialize(f"localhost:{port}", 2, rank, backend="gloo")
-    mesh = make_mesh(model=2, cfg=opt_cfg)
+    mesh = make_mesh(model=2)
     # the one-device references' layout: rank 0 alone, so that their steps
     # average over a group of one and not over the world
     solo = Mesh(data=1, model=1, data_group=dist.new_group([0]))
@@ -3552,7 +3576,9 @@ def d30_kernel_phase(torch, cfg):
     inputs: q and k L2-normalised, q times exp(min(s, log 100)) per head
     with s from random_scale_mul (scores up to +-100), scale 1; the limits
     of the d16 checks, and the times at the final scale and the training
-    shape. Returns {kernel: {path: times}}."""
+    shape; then the same at a model = 2 rank's shapes (phase 28: 15 of the
+    30 heads), K1 at the joint path's final scale (16, 15, 512, 64) and
+    K3/K4 at (8, 15, 1360, 64). Returns {kernel: {path: times}}."""
     import math
 
     from controlvar_tpu_torch.models.masks import attn_mask_for_config
@@ -3564,11 +3590,11 @@ def d30_kernel_phase(torch, cfg):
     sm = torch.exp(torch.clamp(random_scale_mul(torch, (H,), 30), max=math.log(100.0))).to(dev)
     unit = lambda x: x / x.norm(dim=-1, keepdim=True)
 
-    def qkv(B, l):
-        """The strided (B, H, l, hd) q, k, v views of one fused QKV output
-        after cos_attn's normalisation, as the blocks give them."""
-        x = torch.randn(B, l, 3, H, hd, generator=g, device=dev)
-        x[:, :, 0] = unit(x[:, :, 0]) * sm[:, None]
+    def qkv(B, l, heads=H):
+        """The strided (B, heads, l, hd) q, k, v views of one fused QKV
+        output after cos_attn's normalisation, as the blocks give them."""
+        x = torch.randn(B, l, 3, heads, hd, generator=g, device=dev)
+        x[:, :, 0] = unit(x[:, :, 0]) * sm[:heads, None]
         x[:, :, 1] = unit(x[:, :, 1])
         return x.to(bf).permute(2, 0, 3, 1, 4)
 
@@ -3602,6 +3628,33 @@ def d30_kernel_phase(torch, cfg):
     for kname, (ms, plain, lib, b) in (("K3", t3), ("K4", t4)):
         times[kname]["train"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0],
                                      bound_by=b[1])
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    # a model = 2 rank's shapes (phase 28): 15 of the 30 heads
+    Hr, lo = H // 2, cfg.begin_ends[-1][0]
+    ck = unit(torch.randn(2, 16, Hr, L, hd, generator=g, device=dev)).to(bf)
+    cv = torch.randn(2, 16, Hr, L, hd, generator=g, device=dev).to(bf)
+    q = qkv(16, L - lo, Hr)[0]
+    errs["K1"].append(check_close(
+        f"K1 d30 rank (16 rows x {Hr} heads, cos_attn) l={L - lo} cur={L}",
+        decode_attention(q, ck, cv, 1, L, 1.0), decode_attention_plain(q, ck[1], cv[1], 1.0),
+        decode_attention_plain(q, ck[1], cv[1].abs(), 1.0)))
+    times["K1"]["tp_rank"] = _k1_times(
+        torch, f"d30 rank joint final scale (16, {Hr}, {L - lo}, {hd}) over {L} rows, cos_attn",
+        q, ck, cv, 1, L, 1.0)
+    del ck, cv
+    name = f"d30 rank train (8, {Hr}, {L}, {hd}), block-causal, strided, cos_attn, scale 1"
+    q, k, v = qkv(8, L, Hr)
+    do = torch.randn(8, L, Hr, hd, generator=g, device=dev).to(bf).transpose(1, 2)
+    out, lse = flash_attention(q, k, v, mask, 1.0)
+    errs["K3"].append(_check_k3(torch, name, q, k, v, mask, 1.0, out, lse))
+    errs["K4"] += _check_k4(torch, name, q, k, v, do, mask, 1.0)
+    del out, lse
+    t3, t4 = _flash_times(torch, f"d30 rank train shape (8, {Hr}, {L}, {hd}), cos_attn", q, k,
+                          v, do, mask, 1.0)
+    for kname, (ms, plain, lib, b) in (("K3", t3), ("K4", t4)):
+        times[kname]["tp_rank"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0],
+                                       bound_by=b[1])
     for kname, e in errs.items():
         times[kname]["max_abs_err"] = max(e)
     return times
@@ -3797,6 +3850,426 @@ def d30_phase(torch, profile: bool):
     return dict(kernels=kernels, train=train, cond=cond, joint=joint, cli_s=cli_s)
 
 
+# ---- phase 27: the parity tooling on the card ---------------------------------
+
+# The JAX package's logits_parity default: teacher-forced fp32 logits within
+# 5e-3 absolute of the reference's.
+PARITY_ATOL = 5e-3
+# A stub of the upstream checkout's `models` package for eval/parity.py: the
+# constructor arguments and calls that parity makes, over the port's own
+# modules on the CPU in fp32 (the card's machine has neither the checkout
+# nor the released weights). Its ControlVAR takes the default attention
+# path, the plain version of K3 on the CPU, where the port's side takes
+# `use_flash=False` on the card: two implementations of one function.
+PARITY_STUB = {
+    "__init__.py": "",
+    "vqvae.py": """
+import torch
+
+from controlvar_tpu_torch.ckpt.torch_import import convert_vqvae_state_dict
+from controlvar_tpu_torch.config import VQVAEConfig
+from controlvar_tpu_torch.models.vqvae import VQVAE as _VQVAE
+
+
+class VQVAE:
+    def __init__(self, vocab_size, z_channels, ch, v_patch_nums, test_mode=True):
+        self.cfg = VQVAEConfig(vocab_size=vocab_size, z_channels=z_channels, ch=ch,
+                               patch_nums=tuple(v_patch_nums))
+
+    def load_state_dict(self, sd, strict=True):
+        self.params = convert_vqvae_state_dict(sd, self.cfg, device="cpu")
+
+    def eval(self):
+        return self
+
+    def img_to_idxBl(self, x, v_patch_nums=None):
+        return _VQVAE(self.cfg, device="cpu").img_to_ids(self.params, x.permute(0, 2, 3, 1))
+""",
+    "control_var.py": """
+import torch
+
+from controlvar_tpu_torch.ckpt.torch_import import convert_control_var_state_dict
+from controlvar_tpu_torch.config import control_var_config_from_depth
+from controlvar_tpu_torch.models.control_var import ControlVARModel
+
+
+class ControlVAR:
+    def __init__(self, vae_local, depth, embed_dim, num_heads, patch_nums, mask_factor,
+                 multi_cond, cond_drop_rate, flash_if_available=True,
+                 fused_if_available=True):
+        self.cfg = control_var_config_from_depth(depth, multi_cond=multi_cond,
+                                                 cond_drop_rate=cond_drop_rate)
+        assert (self.cfg.embed_dim, self.cfg.num_heads, self.cfg.mask_factor) == (
+            embed_dim, num_heads, mask_factor)
+
+    def eval(self):
+        return self
+
+    def load_state_dict(self, sd, strict=True):
+        self.params = convert_control_var_state_dict(sd, self.cfg, device="cpu")
+
+    def __call__(self, labels, x_tf, cond_type=None, mask_first=True):
+        return ControlVARModel(self.cfg, device="cpu").forward_train(
+            self.params, labels, x_tf, cond_type=cond_type, mask_first=mask_first,
+            train=False, compute_dtype=torch.float32)
+""",
+}
+
+
+def parity_phase(torch, cfg):
+    """Phase 27: eval/parity.py and `cli.main parity` on the card against
+    a stub reference tree of the port's own modules on the CPU (PARITY_STUB),
+    on .pth files that the port's exporter writes from seeds: the ch-160
+    VQVAE's token streams of 4 seeded 256x256 images at the 10 scales
+    (bitwise), the d16 multi_cond model's (gates raised) teacher-forced
+    logits at B=2 (within PARITY_ATOL, every argmax equal), then `parity
+    --depth 16 --ckpt` through the CLI (--out JSON, its report the direct
+    call's on the same seed: the same flags, max_abs_diff within 1e-6). Every count is set to 0 before and read
+    after: the parity path launches no kernel. Returns the numbers."""
+    import numpy as np
+
+    from controlvar_tpu_torch.ckpt.torch_export import (export_control_var_state_dict,
+                                                        export_vqvae_state_dict,
+                                                        save_torch_checkpoint)
+    from controlvar_tpu_torch.cli import main as cli
+    from controlvar_tpu_torch.config import VQVAEConfig
+    from controlvar_tpu_torch.eval import parity
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+
+    tmp = _scratch_dir()
+    at = lambda *p: os.path.join(tmp.name, *p)
+    os.makedirs(at("reference", "models"))
+    for name, text in PARITY_STUB.items():
+        with open(at("reference", "models", name), "w") as f:
+            f.write(text)
+    vq_cfg = VQVAEConfig()
+    t0 = time.time()
+    params = raise_gates(ControlVARModel(cfg).init_params(0))
+    save_torch_checkpoint(at("d16.pth"), export_control_var_state_dict(params, cfg))
+    save_torch_checkpoint(at("vae.pth"), export_vqvae_state_dict(VQVAE(vq_cfg).init_params(1),
+                                                                 vq_cfg))
+    del params
+    torch.cuda.empty_cache()
+    print(f"parity: d16 (gates raised) and ch-160 VQVAE .pth written in {time.time() - t0:.1f} s")
+    wrappers = _kernel_wrappers()
+    saved = parity.REFERENCE_ROOT, list(sys.path)
+    parity.REFERENCE_ROOT = at("reference")
+    try:
+        _reset(*wrappers)
+        images = np.random.default_rng(27).uniform(-1, 1, (4, 256, 256, 3)).astype(np.float32)
+        t = time.perf_counter()
+        tokens = parity.token_stream_parity(at("vae.pth"), images)
+        t_tokens = time.perf_counter() - t
+        print(f"parity: token streams of 4 images at {len(vq_cfg.patch_nums)} scales, card vs "
+              f"CPU, in {t_tokens:.1f} s: per-scale match "
+              f"{', '.join(f'{x:.6f}' for x in tokens['per_scale_match'])}; total "
+              f"{tokens['total_match_rate']:.6f}, bitwise {tokens['bitwise']}")
+        flipped = [(si, round((1 - x) * 4 * pn * pn)) for si, (x, pn) in
+                   enumerate(zip(tokens["per_scale_match"], vq_cfg.patch_nums)) if x < 1.0]
+        if not tokens["bitwise"]:
+            fail(f"parity: token streams differ, (scale, ids) = {flipped}")
+        rng = np.random.default_rng(42)  # the CLI's default seed and batch size
+        B = 2
+        inputs = (rng.integers(0, cfg.num_classes, (B,)).astype(np.int64),
+                  rng.integers(0, 4, (B,)).astype(np.int64),
+                  rng.standard_normal((B, cfg.seq_len - cfg.first_l, cfg.cvae))
+                  .astype(np.float32))
+        t = time.perf_counter()
+        logits = parity.logits_parity(at("d16.pth"), 16, *inputs)
+        t_logits = time.perf_counter() - t
+        print(f"parity: d16 teacher-forced logits, B={B}, card (use_flash=False) vs CPU, in "
+              f"{t_logits:.1f} s: max_abs_diff {logits['max_abs_diff']:.3e} (limit "
+              f"{PARITY_ATOL:g}), mean_abs_diff {logits['mean_abs_diff']:.3e}, argmax match "
+              f"{logits['argmax_match_rate']:.6f}")
+        if not (logits["within_tolerance"] and logits["max_abs_diff"] <= PARITY_ATOL
+                and logits["argmax_match_rate"] == 1.0):
+            fail(f"parity: logits {logits}")
+        t = time.perf_counter()
+        cli.main(["parity", "--depth", "16", "--ckpt", at("d16.pth"), "--out",
+                  at("parity.json")])
+        t_cli = time.perf_counter() - t
+        with open(at("parity.json")) as f:
+            report = json.load(f)
+        print(f"parity: cli.main parity --depth 16 --ckpt in {t_cli:.1f} s: {report}")
+        got = report.get("logits", {})
+        if (sorted(report) != ["logits"] or sorted(got) != sorted(logits)
+                or got["within_tolerance"] != logits["within_tolerance"]
+                or got["argmax_match_rate"] != logits["argmax_match_rate"]
+                or abs(got["max_abs_diff"] - logits["max_abs_diff"]) > 1e-6):
+            fail("parity: the CLI's report differs from the direct call's on the same seed")
+        counts = dict(zip(KERNEL_NAMES, (w.launches for w in wrappers)))
+        print(f"parity: launches {counts} (the parity path runs no kernel)")
+        if any(counts.values()):
+            fail(f"parity: launches {counts}")
+    finally:
+        parity.REFERENCE_ROOT = saved[0]
+        sys.path[:] = saved[1]
+        for name in [m for m in sys.modules if m == "models" or m.startswith("models.")]:
+            del sys.modules[name]
+        tmp.cleanup()
+    torch.cuda.empty_cache()
+    return dict(tokens=tokens, logits=logits, t_tokens=t_tokens, t_logits=t_logits, t_cli=t_cli)
+
+
+# ---- phase 28: ControlVAR-d30 over a model axis --------------------------------
+
+# d30 at model = 2 on this card: two ranks over gloo, 15 of the 30 heads
+# each, the MLP, ada_lin and the head cut. The parent holds each rank's
+# joint call and train step against its own one-device run on the same
+# weights (init_params(0), gates raised), batch and generators, at phase
+# 24's limits. Of the step's params after it and its clipped gradients the
+# parent holds the first and the last layer (D30_TP_LAYERS) and every leaf
+# outside the blocks: all 30 layers of 2.0 B params, gathered, would be 16
+# GB through files. The loss and grad_norm cover the whole model.
+D30_TP_LAYERS = (0, 29)
+D30_TP_TIMEOUT_S = 600
+
+
+def _d30_subtree(tree):
+    """tree with every leaf under "blocks" cut to D30_TP_LAYERS (its depth
+    dimension kept), the others as they are."""
+    idx = list(D30_TP_LAYERS)
+    pick = lambda t: ({k: pick(v) for k, v in t.items()} if isinstance(t, dict)
+                      else t[idx].contiguous())
+    return {k: (pick(v) if k == "blocks" else v) for k, v in tree.items()}
+
+
+def _d30_joint(torch, model, vqvae, params, vq_params):
+    """The d30 joint sampler at B=8 (stacked cache, 2-way CFG 4.0, top-k
+    900, top-p 0.96) with its prepared params, and a call(seed) -> canvases."""
+    from controlvar_tpu_torch.eval.stepwise import StepwiseJointSampler
+
+    sampler = StepwiseJointSampler(model, vqvae)
+    serve = sampler.prepare_params(params)
+    labels, types = torch.arange(8), torch.arange(8) % 4
+    return lambda seed: sampler(serve, vq_params, labels, types,
+                                torch.Generator().manual_seed(seed))
+
+
+def d30_tp_rank_main(rank: int, port: str, directory: str) -> None:
+    """One rank of phase 28 (`python3 chip_smoke.py --d30-tp-rank RANK PORT
+    DIR`): a gloo group of two on this card, make_mesh(model=2), this
+    rank's shard of ControlVAR-d30 (init_params(0), gates raised); a joint
+    call at B=8 with the ranks' generators seeded apart (K1/K2 counted, the
+    ids saved), one on the one-device call's ids (each CFG branch's logits
+    at scales 1 and 9 against that call's), then one train step at the d30
+    recipe (K3/K4 counted) whose D30_TP_LAYERS params and gradients, gathered,
+    rank 0 writes. Writes DIR/rank<RANK>.json."""
+    import faulthandler
+    import math
+
+    import torch
+
+    from controlvar_tpu_torch.config import VQVAEConfig
+    from controlvar_tpu_torch.device import tree_map
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.ops.attention import (decode_attention, flash_attention,
+                                                    flash_attention_bwd)
+    from controlvar_tpu_torch.ops.sample_kernel import sample_top_k_top_p_bisect
+    from controlvar_tpu_torch.parallel import distributed
+    from controlvar_tpu_torch.parallel.mesh import make_mesh
+    from controlvar_tpu_torch.parallel.tensor import gather_params, shard_params
+    from controlvar_tpu_torch.train.train_step import ControlVARTrainStep, init_train_state
+
+    # a rank that hangs in a collective prints where before its parent's limit
+    faulthandler.dump_traceback_later(D30_TP_TIMEOUT_S - 30, exit=True)
+    kernels = (decode_attention, sample_top_k_top_p_bisect, flash_attention, flash_attention_bwd)
+    cfg, optim = d30_recipe()
+    distributed.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+    mesh = make_mesh(model=2)
+    t = time.perf_counter()
+    model, vqvae = ControlVARModel(cfg, mesh=mesh), VQVAE(VQVAEConfig())
+    whole = raise_gates(model.init_params(0))
+    params = shard_params(mesh, whole, mesh.model_index, cfg)
+    del whole
+    torch.cuda.empty_cache()
+    vq_params = vqvae.init_params(1)
+    res = {"rank": rank, "mesh": [mesh.data, mesh.model, mesh.data_index, mesh.model_index],
+           "heads": params["blocks"]["qkv_kernel"].shape[-1] // (3 * cfg.head_dim),
+           "init_s": time.perf_counter() - t}
+    print(f"phase 28 rank {rank}: init and shard {res['init_s']:.1f} s", flush=True)
+    joint = _d30_joint(torch, model, vqvae, params, vq_params)
+    ref = torch.load(os.path.join(directory, "joint_ref.pt"), weights_only=True)
+
+    def call(seed, forced=None, branches=None):
+        _reset(*kernels)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with _tp_recorded(torch, forced, branches) as (ids, logits):
+            out = joint(seed)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, ids, logits, out, [k.launches for k in kernels[:2]]
+
+    dt, ids, _, out, counts = call(12 + rank)  # the ranks' generators differ
+    res.update(joint_s=dt, joint_counts=counts,
+               canvases_ok=all(tuple(c.shape) == (8, 256, 256, 3) and bool(torch.isfinite(c).all())
+                               and float(c.min()) >= 0.0 and float(c.max()) <= 1.0 for c in out))
+    torch.save([x.cpu() for x in ids], os.path.join(directory, f"ids_rank{rank}.pt"))
+    print(f"phase 28 rank {rank}: joint call {dt:.2f} s, (K1, K2) = {tuple(counts)}", flush=True)
+    branches = {}
+    dt_forced, _, logits, _, _ = call(11, ref["ids"], branches)
+    rel = lambda a, b: float((a.float() - b.float()).norm() / b.float().norm())
+    res["logits"] = {}
+    for si, want in ref["branches"].items():
+        per = [rel(a, b.cuda()) for a, b in zip(branches[si].split(8), want.split(8))]
+        res["logits"][str(si)] = dict(branch_rel_l2=per,
+                                      combined_rel_l2=rel(logits[si], ref["logits"][si].cuda()))
+    res["joint_forced_s"] = dt_forced
+    del joint, out, logits, branches
+    torch.cuda.empty_cache()
+    stepper = ControlVARTrainStep(model, vqvae, optim, max_steps=1000, warmup_steps=10)
+    state = init_train_state(params, optim)
+    batch = _pixel_batch(torch, 8, cfg.num_classes, 5)
+    torch.cuda.reset_peak_memory_stats()
+    _reset(*kernels)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, aux = stepper.step(state, vq_params, batch, torch.Generator().manual_seed(6))
+    torch.cuda.synchronize()
+    res.update(step_s=time.perf_counter() - t, step_counts=[k.launches for k in kernels[2:]],
+               loss=float(aux["loss"]), grad_norm=float(aux["grad_norm"]),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    res["finite"] = math.isfinite(res["loss"]) and math.isfinite(res["grad_norm"])
+    print(f"phase 28 rank {rank}: train step {res['step_s']:.2f} s, (K3, K4) = "
+          f"{tuple(res['step_counts'])}, peak allocated {res['peak_gib']:.2f} GiB", flush=True)
+    grads = gather_params(mesh, _d30_subtree(tree_map(lambda x: x.grad, state.params)), cfg)
+    after = gather_params(mesh, _d30_subtree(tree_map(lambda x: x.detach(), state.params)), cfg)
+    if rank == 0:
+        torch.save({"params": tree_map(lambda x: x.cpu(), after),
+                    "grads": tree_map(lambda x: x.cpu(), grads)},
+                   os.path.join(directory, "train_rank0.pt"))
+    del grads, after, state, stepper
+    distributed.shutdown()
+    with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def d30_tp_phase(torch, smi: str):
+    """Phase 28: ControlVAR-d30 over model = 2. The one-device joint call
+    (its ids, and each CFG branch's logits at scales 1 and 9) and train step
+    in this process, whose d30 tree is then freed; then two ranks of
+    `d30_tp_rank_main` on this card in a gloo group, held to them. Returns
+    the numbers."""
+    import gc
+
+    from controlvar_tpu_torch.config import VQVAEConfig
+    from controlvar_tpu_torch.device import tree_map
+    from controlvar_tpu_torch.models.control_var import ControlVARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.train.param_groups import named_leaves
+    from controlvar_tpu_torch.train.train_step import ControlVARTrainStep, init_train_state
+
+    cfg, optim = d30_recipe()
+    tmp = _scratch_dir()
+    d = tmp.name
+    t0 = time.time()
+    model, vqvae = ControlVARModel(cfg), VQVAE(VQVAEConfig())
+    params = raise_gates(model.init_params(0))
+    vq_params = vqvae.init_params(1)
+    joint = _d30_joint(torch, model, vqvae, params, vq_params)
+    branches = {}
+    with _tp_recorded(torch, branches=branches) as (ids, logits):
+        joint(11)
+    torch.save({"ids": [x.cpu() for x in ids],
+                "logits": {k: v.cpu() for k, v in logits.items()},
+                "branches": {k: v.cpu() for k, v in branches.items()}},
+               os.path.join(d, "joint_ref.pt"))
+    del joint, ids, logits, branches
+    torch.cuda.empty_cache()
+    stepper = ControlVARTrainStep(model, vqvae, optim, max_steps=1000, warmup_steps=10)
+    state = init_train_state(params, optim)
+    state, aux = stepper.step(state, vq_params, _pixel_batch(torch, 8, cfg.num_classes, 5),
+                              torch.Generator().manual_seed(6))
+    held = lambda fn: dict(named_leaves(tree_map(lambda x: x.cpu(), _d30_subtree(
+        tree_map(fn, state.params)))))
+    one = (float(aux["loss"]), float(aux["grad_norm"]), float(aux["lr"]),
+           held(lambda x: x.detach()), held(lambda x: x.grad))
+    del state, stepper, params, vq_params, model, vqvae, aux
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 28: one-device joint call and step in {time.time() - t0:.1f} s (loss "
+          f"{one[0]:.6f}, grad_norm {one[1]:.6f}); the d30 tree freed, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB left allocated", flush=True)
+    port = str(_free_port())
+    t1 = time.time()
+    logs = [os.path.join(d, f"rank{r}.log") for r in range(2)]
+    procs = []
+    for r in range(2):
+        with open(logs[r], "w") as log:  # a file, not a pipe: no rank blocks on its output
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                           "--d30-tp-rank", str(r), port, d], stdout=log,
+                                          stderr=subprocess.STDOUT, text=True))
+
+    def tail(r):
+        with open(logs[r]) as f:
+            return f.read()[-6000:]
+
+    try:
+        for r, p in enumerate(procs):
+            p.wait(timeout=max(1.0, D30_TP_TIMEOUT_S - (time.time() - t1)))
+            if p.returncode != 0:
+                print(tail(1 - r), "\n----\n", tail(r))
+                fail(f"phase 28: rank {r} exited with {p.returncode}")
+    except subprocess.TimeoutExpired:
+        print(tail(0), "\n----\n", tail(1))
+        fail(f"phase 28: a rank ran past {D30_TP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.time() - t1
+    for r in range(2):
+        with open(logs[r]) as f:
+            print("\n".join(line for line in f.read().splitlines()
+                            if line.startswith("phase 28") or "FAIL" in line))
+    res = []
+    for r in range(2):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    S, D = cfg.num_scales, cfg.depth
+    step = _launches_per_step(D, "full")
+    for r, x in enumerate(res):
+        print(f"phase 28 rank {r}: mesh {tuple(x['mesh'])}, {x['heads']} heads; joint call "
+              f"{x['joint_s']:.2f} s (K1, K2) = {tuple(x['joint_counts'])}; train step "
+              f"{x['step_s']:.2f} s (K3, K4) = {tuple(x['step_counts'])}, loss {x['loss']:.6f} "
+              f"grad_norm {x['grad_norm']:.6f}, peak allocated {x['peak_gib']:.2f} GiB")
+        if x["mesh"] != [1, 2, 0, r] or x["heads"] != cfg.num_heads // 2:
+            fail(f"phase 28 rank {r}: layout {x['mesh']}, {x['heads']} heads")
+        if x["joint_counts"] != [D * S, S] or x["step_counts"] != list(step):
+            fail(f"phase 28 rank {r}: launches (K1, K2) = {x['joint_counts']}, (K3, K4) = "
+                 f"{x['step_counts']}")
+        if not (x["canvases_ok"] and x["finite"]):
+            fail(f"phase 28 rank {r}: a canvas or a loss is bad")
+        for si, e in x["logits"].items():
+            print(f"phase 28 rank {r}: joint logits at scale {si} vs one device: rel L2 of each "
+                  f"CFG branch {', '.join(f'{v:.3e}' for v in e['branch_rel_l2'])} (limit "
+                  f"{TP_LOGIT_REL_L2:g}); of the combined logits {e['combined_rel_l2']:.3e}")
+            if not max(e["branch_rel_l2"]) <= TP_LOGIT_REL_L2:
+                fail(f"phase 28 rank {r}: scale {si} branch logits rel L2 "
+                     f"{max(e['branch_rel_l2']):.3e}")
+    ids = [torch.load(os.path.join(d, f"ids_rank{r}.pt"), weights_only=True) for r in range(2)]
+    if len(ids[0]) != S or not all(torch.equal(a, b) for a, b in zip(*ids)):
+        fail("phase 28: the ranks drew different ids")
+    print("phase 28: the joint call's ids equal on both ranks (generators seeded apart)")
+    tp = torch.load(os.path.join(d, "train_rank0.pt"), weights_only=True)
+    x = res[0]
+    cuda = lambda t: {k: v.cuda() for k, v in t.items()}
+    limits = _tp_step_limits(
+        torch, f"phase 28 train step vs one device (layers {D30_TP_LAYERS} and every leaf "
+        f"outside the blocks)", (one[0], one[1], one[2], cuda(one[3]), cuda(one[4])),
+        (x["loss"], x["grad_norm"], None, cuda(dict(named_leaves(tp["params"]))),
+         cuda(dict(named_leaves(tp["grads"])))))
+    wall = time.time() - t0
+    print(f"phase 28: {wall:.1f} s, the ranks {ranks_s:.1f} s with their start-up, on {smi}: two "
+          f"ranks sharing one card over gloo, a correctness run, not TP speed")
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return dict(wall=wall, ranks=res, limits=limits)
+
+
 def category(kernel_name: str) -> str:
     """The device-time category of a kernel (CATEGORIES), else "other"."""
     return next((c for c, keys in CATEGORIES if any(k in kernel_name for k in keys)), "other")
@@ -3859,6 +4332,7 @@ def breakdown(torch, call, sample_only, tokenize, decode, dt_timed):
 
 
 def main() -> None:
+    t_start = time.time()
     if not os.path.isdir(os.path.join(ROOT, "controlvar_tpu_torch")):
         fail("controlvar_tpu_torch/ not found beside chip_smoke.py: run from a checkout")
     try:
@@ -3868,6 +4342,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--d30-tp-rank"]:
+        rank, port, directory = sys.argv[2:5]
+        d30_tp_rank_main(int(rank), port, directory)
+        return
     if sys.argv[1:2] in (["--tp-rank"], ["--tp-modes-rank"]):
         rank, port, port_cli, directory = sys.argv[2:6]
         (tp_rank_main if sys.argv[1] == "--tp-rank" else tp_modes_rank_main)(
@@ -3992,6 +4470,13 @@ def main() -> None:
     phase("the d30 paths: ControlVAR-d30 (cos_attn, 30 heads): kernels at its shapes, a small "
           "cos_attn reference, the train step, conditional and joint generation, cli train")
     d30 = d30_phase(torch, profile)
+    torch.cuda.empty_cache()
+    phase("parity: eval/parity.py and cli.main parity on the card against a stub reference of "
+          "the port's modules on the CPU (ch-160 token streams, d16 logits)")
+    par = parity_phase(torch, cfg)
+    phase("ControlVAR-d30 over model=2: two ranks on this card (gloo), 15 heads each, a joint "
+          "call and a train step against one device")
+    d30_tp = d30_tp_phase(torch, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4039,6 +4524,16 @@ def main() -> None:
           f"init included) {d30['cli_s']:.2f} s; on")
     print(smi)
     print("d30 shapes (cos_attn, scale 1): " + json.dumps(d30["kernels"]))
+    r0 = d30_tp["ranks"][0]
+    print(f"parity (card vs CPU): token streams bitwise {par['tokens']['bitwise']} in "
+          f"{par['t_tokens']:.1f} s, d16 logits max_abs_diff {par['logits']['max_abs_diff']:.3e} "
+          f"in {par['t_logits']:.1f} s, CLI {par['t_cli']:.1f} s; d30 over model=2 (two ranks "
+          f"sharing one card over gloo, a correctness run, not TP speed): joint call "
+          f"{r0['joint_s']:.2f} s, train step {r0['step_s']:.2f} s, peak allocated "
+          f"{r0['peak_gib']:.2f} GiB a rank, launches a rank (K1, K2, K3, K4) "
+          f"{tuple(r0['joint_counts'] + r0['step_counts'])}, phase {d30_tp['wall']:.1f} s; on")
+    print(smi)
+    print(f"chip_smoke: the whole run {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in (k1, k2, k3, k4, k5, k6, k7, k8)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,14 +1,17 @@
 """Command-line entry points of the PyTorch port.
 
 The port of `controlvar_tpu/cli/main.py`: one CLI over the dataclass
-configs, with the same subcommands, options, defaults and messages (all
-but `parity`, which needs the upstream reference checkout):
+configs, with the same subcommands, options, defaults and messages:
 
   python -m controlvar_tpu_torch.cli.main train     --depth 16 --data synthetic ...
   python -m controlvar_tpu_torch.cli.main sample    --depth 16 --ckpt d16.pth ...
   python -m controlvar_tpu_torch.cli.main eval-cond --depth 16 --ckpt d16.pth ...
   python -m controlvar_tpu_torch.cli.main fid       --depth 16 --out ./fid ...
   python -m controlvar_tpu_torch.cli.main tokenize  --vae_ckpt vae_ch160v4096z32.pth ...
+  python -m controlvar_tpu_torch.cli.main parity    --depth 16 --ckpt d16.pth ...
+
+`parity` holds the port against the upstream reference checkout that
+CONTROLVAR_REFERENCE_ROOT names (`eval/parity.py`), on the same .pth files.
 
 Every subcommand runs on `cuda` unless `--device cpu` is given (the one
 option the port adds); without a GPU and without it, it raises. YAML
@@ -164,6 +167,14 @@ def build_parser() -> argparse.ArgumentParser:
                       help="checkpoint/resume dir")
     tvar.add_argument("--save_every", type=int, default=None,
                       help="checkpoint every N steps (always saves at the end)")
+
+    pr = sub.add_parser("parity", parents=[common],
+                        help="token-stream / logits parity vs the PyTorch "
+                             "reference on the SAME .pth weights")
+    pr.add_argument("--images", type=str, nargs="*", default=None,
+                    help="images for token-stream parity (requires --vae_ckpt)")
+    pr.add_argument("--batch_size", type=int, default=2)
+    pr.add_argument("--out", type=str, default=None, help="write JSON report")
 
     s = sub.add_parser("sample", parents=[common])
     s.add_argument("--batch_size", type=int, default=8)
@@ -801,6 +812,45 @@ def cmd_train_var(args):
     save(state, epoch, final=True)
 
 
+def cmd_parity(args):
+    """Numerical parity against the PyTorch reference on the same .pth
+    weights (the BASELINE.md north-star acceptance check): the token
+    streams of --images through --vae_ckpt, and the teacher-forced logits
+    of --ckpt on seeded inputs of --batch_size rows."""
+    import json
+
+    from controlvar_tpu_torch.eval.parity import logits_parity, token_stream_parity
+
+    report = {}
+    if args.vae_ckpt and args.images:
+        from controlvar_tpu_torch.data.transforms import read_image
+
+        imgs = np.stack([read_image(p, 256) for p in args.images])
+        pns = tuple(args.patch_nums) if args.patch_nums else (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
+        report["token_stream"] = token_stream_parity(args.vae_ckpt, imgs, pns,
+                                                     device=args.device)
+        print("token-stream:", report["token_stream"])
+    if args.ckpt:
+        rng = np.random.default_rng(args.seed)
+        B = args.batch_size
+        _, cfg = _configs(args)
+        L_tf = cfg.seq_len - cfg.first_l
+        report["logits"] = logits_parity(
+            args.ckpt, args.depth,
+            rng.integers(0, cfg.num_classes, (B,)).astype(np.int64),
+            rng.integers(0, 4, (B,)).astype(np.int64),
+            rng.standard_normal((B, L_tf, cfg.cvae)).astype(np.float32),
+            device=args.device,
+        )
+        print("logits:", report["logits"])
+    if not report:
+        raise SystemExit("parity needs --vae_ckpt --images and/or --ckpt")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=2)
+        print(f"wrote {args.out}")
+
+
 def cmd_pretokenize(args):
     from controlvar_tpu_torch.data.build import Loader, create_dataset
     from controlvar_tpu_torch.data.shards import pretokenize
@@ -824,6 +874,7 @@ COMMANDS = {
     "recon": cmd_recon,
     "train-vqvae": cmd_train_vqvae,
     "pretokenize": cmd_pretokenize,
+    "parity": cmd_parity,
 }
 
 

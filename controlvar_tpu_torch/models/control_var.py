@@ -43,7 +43,7 @@ from controlvar_tpu_torch.ops.attention import tile_flags
 from controlvar_tpu_torch.ops.resize import resize_area
 from controlvar_tpu_torch.ops.sampling import (gumbel_softmax, sample_top_k_top_p,
                                                smooth_temperature)
-from controlvar_tpu_torch.parallel.mesh import check_model_axis, tp_of
+from controlvar_tpu_torch.parallel.mesh import tp_of
 from controlvar_tpu_torch.parallel.tensor import broadcast_from_model_root
 
 Params = Dict
@@ -74,8 +74,6 @@ class ControlVARModel:
         self.device = resolve_device(device)
         self.mesh = mesh
         self.tp = tp_of(mesh)
-        if self.tp is not None:
-            check_model_axis(cfg, mesh.model)
         lvl = level_index_1L(cfg.patch_nums, cfg.mask_factor, cfg.separator)
         # the (L,) scale index of every token, copied to the device once
         self._level_index = torch.from_numpy(lvl).long().to(self.device)
@@ -186,7 +184,8 @@ class ControlVARModel:
     def forward_train(self, params: Params, labels: torch.Tensor, x_tf: torch.Tensor,
                       cond_type: Optional[torch.Tensor] = None, mask_first: bool = True,
                       generator: Optional[torch.Generator] = None, train: bool = True,
-                      compute_dtype=torch.bfloat16, remat: str = "full") -> torch.Tensor:
+                      compute_dtype=torch.bfloat16, remat: str = "full",
+                      use_flash: bool = True) -> torch.Tensor:
         """Teacher-forced logits (B, L, head_vocab) fp32.
 
         labels (B,) class ids; x_tf (B, L_words - first_l, Cvae) interleaved
@@ -198,7 +197,9 @@ class ControlVARModel:
         drawn from the same generator; with train, every layer is recomputed
         in the backward under the remat policy (`transformer.blocks_forward`).
         The residual stream runs in compute_dtype: bf16 on the GPU, where
-        attention goes through K3/K4.
+        attention goes through K3/K4; use_flash=False takes the plain
+        einsum attention instead (`ops.attention.mha_xla`, the parity
+        check's path), on any device.
         """
         cfg = self.cfg
         if train and generator is not None:
@@ -216,7 +217,8 @@ class ControlVARModel:
                                self._attn_mask.to(x.device),
                                flags=self._tile_flags.to(x.device), train=train,
                                generator=generator, remat=remat,
-                               shared_lin=params.get("shared_ada_lin"), tp=self.tp)
+                               shared_lin=params.get("shared_ada_lin"), tp=self.tp,
+                               use_flash=use_flash)
         return tfm.head_logits(params, x, cond, cfg, self.tp)
 
     # ---- joint sampling ------------------------------------------------------

@@ -57,7 +57,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from controlvar_tpu_torch.config import VARConfig
 from controlvar_tpu_torch.ops.attention import (decode_attention, decode_attention_flat,
                                                 decode_attention_fused, decode_attention_inplace,
-                                                decode_attention_prefix, flash_mha)
+                                                decode_attention_prefix, flash_mha, mha_xla)
 from controlvar_tpu_torch.parallel.tensor import (copy_to_model, gather_from_model,
                                                   reduce_from_model)
 
@@ -294,9 +294,11 @@ def blocks_forward(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConf
                    mask: torch.Tensor, *, flags: Optional[torch.Tensor] = None,
                    train: bool = False, generator: Optional[torch.Generator] = None,
                    remat: str = "full", shared_lin: Optional[Params] = None,
-                   tp=None) -> torch.Tensor:
+                   tp=None, use_flash: bool = True) -> torch.Tensor:
     """Full-sequence forward through all blocks, attention through
-    `flash_mha` (K3/K4 on the GPU).
+    `flash_mha` (K3/K4 on the GPU), or through the einsums of `mha_xla`
+    with use_flash=False (the JAX package's flag: no kernel on any device;
+    only a caller that asks for it gets it).
 
     x: (B, L, C) residual stream (bf16 on the GPU); cond: (B, C) fp32;
     mask: (L, L) bool on x's device, flags its `tile_flags`; shared_lin:
@@ -322,7 +324,10 @@ def blocks_forward(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConf
         rates = np.linspace(0.0, cfg.drop_path_rate, D, dtype=np.float32)
         keep = _drop_path(generator, rates, B, x.dtype).to(x.device)
     scale = 1.0 if cfg.cos_attn else cfg.attn_scale
-    attn_fn = lambda q, k, v: flash_mha(q, k, v, mask, scale, flags)
+    if use_flash:
+        attn_fn = lambda q, k, v: flash_mha(q, k, v, mask, scale, flags)
+    else:
+        attn_fn = lambda q, k, v: mha_xla(q, k, v, scale, mask)
     for li, lp in enumerate(_unbind_layers(bp, D)):
         k_li = None if keep is None else keep[li]
         if not train:

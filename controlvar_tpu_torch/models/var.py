@@ -84,7 +84,8 @@ class VARModel:
 
     def forward_train(self, params: Params, labels: torch.Tensor, x_tf: torch.Tensor,
                       generator: Optional[torch.Generator] = None, train: bool = True,
-                      compute_dtype=torch.bfloat16, remat: str = "full") -> torch.Tensor:
+                      compute_dtype=torch.bfloat16, remat: str = "full",
+                      use_flash: bool = True) -> torch.Tensor:
         """Teacher-forced logits (B, L, V) fp32 (reference: var.py:209-253).
 
         labels (B,) class ids; x_tf (B, L - first_l, Cvae) teacher-forcing
@@ -93,7 +94,9 @@ class VARModel:
         drawn from the same generator; with train, every layer is recomputed
         in the backward under the remat policy (`transformer.blocks_forward`).
         The residual stream runs in compute_dtype: bf16 on the GPU, where
-        attention goes through K3/K4 under the block-causal mask.
+        attention goes through K3/K4 under the block-causal mask;
+        use_flash=False takes the plain einsum attention
+        (`ops.attention.mha_xla`) instead, on any device.
         """
         cfg = self.cfg
         if train and generator is not None:
@@ -106,7 +109,7 @@ class VARModel:
                                self._attn_mask.to(x.device),
                                flags=self._tile_flags.to(x.device), train=train,
                                generator=generator, remat=remat,
-                               shared_lin=params.get("shared_ada_lin"))
+                               shared_lin=params.get("shared_ada_lin"), use_flash=use_flash)
         return tfm.head_logits(params, x, cond, cfg)
 
     def sample_cfg(self, params: Params, vqvae, vq_params: Params, labels: torch.Tensor,

@@ -41,7 +41,11 @@ and `flash_attention_bwd` (K4, the port of `flash_attention_bwd`) launch
 `csrc/flash_attention.cu` on CUDA tensors and take `flash_attention_plain`
 and `flash_attention_bwd_plain` on CPU tensors. `flash_mha` is the
 differentiable attention of the training forward, an autograd Function
-whose forward is K3 and whose backward is K4. The JAX package's switches
+whose forward is K3 and whose backward is K4. `mha_xla` (the port of the
+JAX function of that name) is the same attention as plain einsums, which
+the training forward takes only when its caller asks for it
+(`use_flash=False`, the parity check's teacher-forced logits): it runs no
+kernel, on any device. The JAX package's switches
 around its backward (`CONTROLVAR_FLASH_BWD`, and the layer-scan chunking of
 `CONTROLVAR_SCAN_CHUNK`) are not ported: they worked around a TPU compiler
 that hung on the Pallas backward inside a long scan. The port always takes
@@ -413,6 +417,19 @@ _FWD_ARGTYPES = ([_C] + [ctypes.c_longlong] * 3) * 3 + [_C] * 4 + [ctypes.c_int]
 _BWD_ARGTYPES = ([_C] + [ctypes.c_longlong] * 3) * 5 + [_C] * 7 + [ctypes.c_int] * 3 + [
     ctypes.c_float, _C]
 _TILE = 64  # rows of the kernels' tiles
+
+
+def mha_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, H, Lq, hd) x (B, H, Lk, hd) -> (B, H, Lq, hd): softmax(q*scale .
+    K^T [mask -> -1e30]) . V with the scores and the softmax in fp32, p
+    rounded to v's dtype, as the JAX package's `mha_xla` (scale rounded to
+    q's dtype first)."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q * torch.tensor(scale, dtype=q.dtype), k).float()
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:

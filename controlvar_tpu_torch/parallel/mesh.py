@@ -60,16 +60,6 @@ class Mesh(MeshConfig):
         return self.data_index * self.model
 
 
-def check_model_axis(cfg, model: int) -> None:
-    """A model axis must divide the AdaLN width 6C and the MLP's hidden
-    width, which are always split; the heads and the vocabulary fall back
-    to replication where it does not divide them."""
-    hidden = round(cfg.embed_dim * cfg.mlp_ratio)
-    if (6 * cfg.embed_dim) % model or hidden % model:
-        raise ValueError(f"a model axis of {model} must divide 6C = {6 * cfg.embed_dim} and "
-                         f"the MLP width {hidden}")
-
-
 def data_shard(model: int = 1) -> Tuple[int, int]:
     """(shard_id, num_shards) of this process's loader on a mesh with this
     model axis: its data index over the data axis, without making the mesh
@@ -77,12 +67,13 @@ def data_shard(model: int = 1) -> Tuple[int, int]:
     return process_index() // model, max(1, process_count() // model)
 
 
-def make_mesh(data: Optional[int] = None, model: int = 1, cfg=None) -> Mesh:
+def make_mesh(data: Optional[int] = None, model: int = 1) -> Mesh:
     """The layout of the process group as data x model. data defaults to
     the process count over model; data x model must be the process count.
-    With cfg, the model axis is checked against its widths
-    (`check_model_axis`). Every rank must call it, in the same order, as it
-    makes the subgroups."""
+    Any model axis runs a model: each leaf whose width the axis does not
+    divide stays whole (`parallel/tensor.py:leaf_split`), as the JAX
+    package's `param_shardings` replicates it. Every rank must call it, in
+    the same order, as it makes the subgroups."""
     n = process_count()
     if model < 1:
         raise ValueError(f"a model axis of {model}")
@@ -90,8 +81,6 @@ def make_mesh(data: Optional[int] = None, model: int = 1, cfg=None) -> Mesh:
         data = max(1, n // model)
     if data * model != n:
         raise ValueError(f"mesh {data}x{model} needs {data * model} processes, have {n}")
-    if cfg is not None:
-        check_model_axis(cfg, model)
     rank = process_index()
     data_group = model_group = None
     if model > 1:

@@ -19,8 +19,10 @@ divide stays whole, as `param_shardings` falls back (the separator's
 V + 18 head columns: 4114 at d16, cut at model = 2, whole at model = 4);
 for the attention leaves "divides" means num_heads % model == 0, so
 ControlVAR-d30 (30 heads) at model = 4 keeps its attention replicated and
-splits its MLP and ada_lin. 6C and the MLP width must divide
-(`mesh.check_model_axis`).
+splits its MLP and ada_lin; for fc1 and fc2 it means the MLP width
+divides, for ada_lin 6C, so any model axis runs (d16's MLP width 4096 at
+model = 3: only ada_lin is cut). The blocks pick each leaf's collectives
+by its width (`models/transformer.py:_split`).
 
 The collectives of the sharded blocks are Megatron's "f" and "g" operators
 and a gather, as autograd Functions:
@@ -77,6 +79,14 @@ _COLUMN_LEAVES = {"fc1/kernel": 2, "fc1/bias": 1, "fc2/kernel": 1, "ada_lin/kern
                   "ada_lin/bias": 1}
 
 
+def _column_width(sub: str, cfg) -> int:
+    """The width that a column leaf is cut along: 6C for ada_lin, the MLP
+    width for fc1 and fc2."""
+    if sub.startswith("ada_lin"):
+        return 6 * cfg.embed_dim
+    return round(cfg.embed_dim * cfg.mlp_ratio)
+
+
 def leaf_split(name: str, cfg, model: int) -> Optional[Split]:
     """The cut of the leaf `name` (a `named_leaves` path) of a model of
     config cfg on a model axis of `model`; None where it stays whole."""
@@ -87,7 +97,7 @@ def leaf_split(name: str, cfg, model: int) -> Optional[Split]:
         if sub in _HEAD_LEAVES and cfg.num_heads % model == 0:
             dim, groups = _HEAD_LEAVES[sub]
             return Split(dim, groups, cfg.num_heads)
-        if sub in _COLUMN_LEAVES:
+        if sub in _COLUMN_LEAVES and _column_width(sub, cfg) % model == 0:
             return Split(_COLUMN_LEAVES[sub], 1, model)
         return None
     if name in ("head/kernel", "head/bias") and getattr(cfg, "head_vocab",

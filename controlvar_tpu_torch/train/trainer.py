@@ -81,7 +81,7 @@ class Trainer:
                 "shards carry only the mask-first ignore_mask order"
             )
         self.device = resolve_device(self.device)
-        self.mesh = make_mesh(model=self.model_axis, cfg=self.model_cfg)
+        self.mesh = make_mesh(model=self.model_axis)
         self.model = ControlVARModel(self.model_cfg, device=self.device, mesh=self.mesh)
         self.vqvae = VQVAE(self.vq_cfg, device=self.device)
         self.steps_per_epoch = self.loader.steps_per_epoch()

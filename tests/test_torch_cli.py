@@ -2,9 +2,9 @@
 JAX package's (controlvar_tpu/cli/main.py).
 
 - `build_parser`: every subcommand's option strings, defaults, choices,
-  nargs and types equal the JAX parser's; `parity` (which needs the
-  upstream reference checkout) and the port's `--device` are the only
-  differences.
+  nargs and types equal the JAX parser's, `parity` included (its reports
+  are held in tests/test_torch_parity.py); the port's `--device` is the
+  only difference.
 - `_configs`: the model and tokenizer configs equal the JAX ones field by
   field for every ablation flag; the committed YAML recipes merge the same.
 - Both CLIs on the same `.pth` files, written by the JAX package's
@@ -87,10 +87,10 @@ def _options(parser):
 JAX_SUBS = _subcommands(jcli.build_parser())
 
 
-@pytest.mark.parametrize("name", sorted(set(JAX_SUBS) - {"parity"}))
+@pytest.mark.parametrize("name", sorted(JAX_SUBS))
 def test_subcommand_options_equal_the_jax_cli(name):
     port = _subcommands(tcli.build_parser())
-    assert set(JAX_SUBS) - set(port) == {"parity"} and set(port) <= set(JAX_SUBS)
+    assert set(port) == set(JAX_SUBS)
     got = _options(port[name])
     assert got.pop(("--device",)) == (None, None, None, str)
     assert got == _options(JAX_SUBS[name])

@@ -14,8 +14,6 @@ tensor-parallel rule table must give the JAX package's PartitionSpec for
 every leaf of a d16 tree."""
 import json
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -32,14 +30,9 @@ import torch
 
 from controlvar_tpu_torch.config import MeshConfig
 from controlvar_tpu_torch.parallel import distributed, mesh
+from tests.torch_world import World
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_parallel_worker.py")
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 @pytest.fixture(scope="module")
@@ -47,21 +40,11 @@ def runs(tmp_path_factory):
     """{world: [per-rank npz, json]} of the two-process and one-process runs,
     all three processes started together."""
     out = tmp_path_factory.mktemp("dp")
-    port = str(_free_port())
     env = {k: v for k, v in os.environ.items()
            if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID")}
     env["OMP_NUM_THREADS"] = "2"
-    procs = [subprocess.Popen([sys.executable, WORKER, str(r), str(w), port, str(out)],
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for w, r in ((2, 0), (2, 1), (1, 0))]
-    for p in procs:
-        try:
-            _, err = p.communicate(timeout=300)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            pytest.fail("a data-parallel worker timed out after 300 s")
-        assert p.returncode == 0, err[-3000:]
+    World(lambda ports: [[sys.executable, WORKER, str(r), str(w), ports[0], str(out)]
+                         for w, r in ((2, 0), (2, 1), (1, 0))], env=env).wait(300)
 
     def load(r, w):
         with open(out / f"rank{r}_of{w}.json") as f:

@@ -1,6 +1,8 @@
 """Rules of the PyTorch port: it imports neither JAX nor the JAX package,
 PIL and cv2 only inside functions of `controlvar_tpu_torch/data/` (the
 card's machine has neither: it runs synthetic batches or token shards),
+the upstream reference's `models` package only inside functions of
+`eval/parity.py` (imported from a checkout at call time, never shipped),
 its entry points default to CUDA and raise without it, the host-only data
 classes take no device, and its kernel wrappers take their plain versions
 only for CPU tensors."""
@@ -60,6 +62,53 @@ def test_pil_rule_sees_the_imports_it_forbids(tmp_path):
     assert list(_image_imports(bad)) == [(True, "PIL.Image"), (True, "cv2"), (False, "PIL")]
     data = ROOT / "controlvar_tpu_torch" / "data"
     assert any(not top for p in data.glob("*.py") for top, _ in _image_imports(p))
+
+
+def _reference_imports(path):
+    """(module-level?, function name or None, module) of every import of
+    the upstream reference's top-level `models` package in a file."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    owner = {}
+    for fn in ast.walk(tree):
+        if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            for node in ast.walk(fn):
+                owner.setdefault(id(node), fn.name)
+    top = {id(n) for n in tree.body}
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                 [node.module] if isinstance(node, ast.ImportFrom) and node.module
+                 and node.level == 0 else [])
+        for name in names:
+            if name.split(".")[0] == "models":
+                yield id(node) in top, owner.get(id(node)), name
+
+
+PARITY = ROOT / "controlvar_tpu_torch" / "eval" / "parity.py"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_reference_models_only_inside_functions_of_parity(path):
+    """The upstream reference's `models.*` is imported at call time from
+    its checkout, inside the functions of eval/parity.py only: anywhere
+    else it would shadow nothing the port has and fail without the
+    checkout."""
+    for module_level, fn, name in _reference_imports(path):
+        assert not module_level and fn is not None, (
+            f"{path.relative_to(ROOT)} imports {name} outside a function")
+        assert path == PARITY, f"{path.relative_to(ROOT)} imports {name} outside eval/parity.py"
+
+
+def test_reference_rule_sees_the_imports_it_forbids(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text("import models.vqvae\nfrom models.control_var import ControlVAR\n"
+                   "from controlvar_tpu_torch.models import vqvae\n\n"
+                   "def f():\n    from models.vqvae import VQVAE\n")
+    assert list(_reference_imports(bad)) == [(True, None, "models.vqvae"),
+                                             (True, None, "models.control_var"),
+                                             (False, "f", "models.vqvae")]
+    found = list(_reference_imports(PARITY))
+    assert {name for _, _, name in found} == {"models.vqvae", "models.control_var"}
+    assert {fn for _, fn, _ in found} == {"token_stream_parity", "logits_parity"}
 
 
 def test_port_has_sources_and_kernels():

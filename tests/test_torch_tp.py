@@ -33,8 +33,6 @@ tensor-parallel run did, and the reverse."""
 import dataclasses
 import os
 import shutil
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -73,6 +71,7 @@ from controlvar_tpu_torch.parallel.tensor import (cut, leaf_split, merge_shards,
 from controlvar_tpu_torch.train import trainer as trainer_mod
 from controlvar_tpu_torch.train.param_groups import named_leaves
 from controlvar_tpu_torch.train.train_step import ControlVARTrainStep, init_train_state
+from tests.torch_world import World
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_tp_worker.py")
 VQ = dict(ch=32, patch_nums=(1, 2, 4), vocab_size=64)
@@ -94,12 +93,6 @@ class _JFp32Step(JTrainStep):
 class _Fp32Step(ControlVARTrainStep):
     tokenize_dtype = torch.float32
     compute_dtype = torch.float32
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _raise_gates(tree):
@@ -249,18 +242,21 @@ def runs(tmp_path_factory):
     env = {k: v for k, v in os.environ.items()
            if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID", "DIST_BACKEND")}
     env["OMP_NUM_THREADS"] = "1"
-    procs = []
+    worlds = []
     for world, model in WORLDS:
-        port = str(_free_port())
         wd = d / f"world{world}"
-        os.makedirs(wd)
-        for name in ("inputs.pt", "one_to_tp"):
-            (os.symlink if name == "inputs.pt" else shutil.copytree)(d / name, wd / name)
-        cli_port = [str(_free_port())] if world == model else []
-        procs += [subprocess.Popen([sys.executable, WORKER, str(r), str(world), str(model),
-                                    port, str(wd), *cli_port], env=env,
-                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                  for r in range(world)]
+
+        def prepare(wd=wd):
+            shutil.rmtree(wd, ignore_errors=True)
+            os.makedirs(wd)
+            os.symlink(d / "inputs.pt", wd / "inputs.pt")
+            shutil.copytree(d / "one_to_tp", wd / "one_to_tp")
+
+        # the second port, of world == model, is the CLI run's group
+        worlds.append(World(lambda ports, world=world, model=model, wd=wd: [
+            [sys.executable, WORKER, str(r), str(world), str(model), *ports[:1], str(wd),
+             *ports[1:]] for r in range(world)], n_ports=2 if world == model else 1, env=env,
+            prepare=prepare))
     try:
         ref = _jax_runs(jp, jvp, batch, forced, labels, ct)
         ref["one_step"] = _one_process_step(tp, tvp, tbatch, cfg)
@@ -268,14 +264,10 @@ def runs(tmp_path_factory):
             tp, tvp, tbatch, ControlVARConfig(**dict(TINY, cond_drop_rate=0.5,
                                                      drop_path_rate=0.5)), seed=9)
         ref["one_resumed"] = _trainer(cfg, str(d / "one_ckpt"), 2, tvp)
-        logs = []
-        for p in procs:
-            log, err = p.communicate(timeout=240)
-            assert p.returncode == 0, err[-3000:]
-            logs.append(log)
+        logs = [log for w in worlds for log in w.wait(240)]
     finally:
-        for p in procs:
-            p.kill()
+        for w in worlds:
+            w.kill()
     # the single-device Trainer resumes the tensor-parallel checkpoint of step 1
     os.makedirs(d / "tp_to_one")
     shutil.copy(d / "world2" / "tp_ckpt" / "1.pt", d / "tp_to_one" / "1.pt")
@@ -551,8 +543,13 @@ def test_make_mesh_guards():
     assert tmesh.make_mesh(model=1) == MeshConfig(1, 1)
     with pytest.raises(ValueError, match="needs 2 processes"):
         tmesh.make_mesh(model=2)
-    with pytest.raises(ValueError, match="must divide"):
-        tmesh.check_model_axis(ControlVARConfig(**dict(TINY, embed_dim=250, num_heads=5)), 3)
+    # any model axis runs a model: at model 3, C = 250 (MLP width 1000, 5
+    # heads, V 64) cuts only ada_lin (6C = 1500), as param_shardings would
+    cfg3 = ControlVARConfig(**dict(TINY, embed_dim=250, num_heads=5))
+    model3 = ControlVARModel(cfg3, device="cpu", mesh=tmesh.Mesh(data=1, model=3))
+    assert model3.tp.model == 3
+    assert {n for n, _ in named_leaves(model3.init_params(0)) if leaf_split(n, cfg3, 3)} == {
+        "blocks/ada_lin/kernel", "blocks/ada_lin/bias"}
     mesh = tmesh.Mesh(data=1, model=2)
     assert mesh == MeshConfig(1, 2) and MeshConfig(1, 2) == mesh and mesh != MeshConfig(2, 1)
     assert tmesh.replicated(mesh) == () and tmesh.batch_sharding(mesh) == ("data",)

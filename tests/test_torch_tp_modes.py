@@ -51,8 +51,6 @@ process group at d16 widths."""
 import dataclasses
 import os
 import shutil
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -94,6 +92,7 @@ from controlvar_tpu_torch.train import trainer as trainer_mod
 from controlvar_tpu_torch.train.param_groups import named_leaves
 from controlvar_tpu_torch.train.train_step import (ControlVARTrainStep, LoRAControlVARTrainStep,
                                                    init_train_state)
+from tests.torch_world import World
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_tp_modes_worker.py")
 VQ = dict(ch=32, patch_nums=(1, 2, 4), vocab_size=66)
@@ -121,12 +120,6 @@ class _JFp32Step(JTrainStep):
 class _Fp32Step(ControlVARTrainStep):
     tokenize_dtype = torch.float32
     compute_dtype = torch.float32
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _params(kw, rng):
@@ -380,19 +373,21 @@ def runs(tmp_path_factory):
     env = {k: v for k, v in os.environ.items()
            if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID", "DIST_BACKEND")}
     env["OMP_NUM_THREADS"] = "1"
-    procs = []
+    worlds = []
     for world, _ in WORLDS:
-        port = str(_free_port())
         wd = d / f"world{world}"
-        os.makedirs(wd / "one_to_tp_lora")
-        shutil.copy(d / "one_ckpt" / "1.pt", wd / "one_to_tp_lora" / "1.pt")
-        for name in ("inputs.pt", "shards"):
-            os.symlink(d / name, wd / name)
-        cli_ports = [str(_free_port()) for _ in range(3)] if world == 2 else []
-        procs += [subprocess.Popen([sys.executable, WORKER, str(r), str(world), port, str(wd),
-                                    *cli_ports], env=env, stdout=subprocess.PIPE,
-                                   stderr=subprocess.PIPE, text=True)
-                  for r in range(world)]
+
+        def prepare(wd=wd):
+            shutil.rmtree(wd, ignore_errors=True)
+            os.makedirs(wd / "one_to_tp_lora")
+            shutil.copy(d / "one_ckpt" / "1.pt", wd / "one_to_tp_lora" / "1.pt")
+            for name in ("inputs.pt", "shards"):
+                os.symlink(d / name, wd / name)
+
+        # world 2's three more ports are its CLI runs' groups
+        worlds.append(World(lambda ports, world=world, wd=wd: [
+            [sys.executable, WORKER, str(r), str(world), ports[0], str(wd), *ports[1:]]
+            for r in range(world)], n_ports=4 if world == 2 else 1, env=env, prepare=prepare))
     try:
         ref = _jax_runs(inp)
         one = {o: _one_step(inp, o, inp["tokens"], mask_first=o != "bidirectional")
@@ -403,14 +398,10 @@ def runs(tmp_path_factory):
         one["tokens_ign/accum1"] = _one_step(inp, "separator", inp["tokens_ign"])
         one["lora"] = _one_lora_step(inp)
         one["lora_resumed"] = _trainer(str(d / "one_ckpt"), 2, inp["vq_params"])
-        logs = []
-        for p in procs:
-            log, err = p.communicate(timeout=300)
-            assert p.returncode == 0, err[-3000:]
-            logs.append(log)
+        logs = [log for w in worlds for log in w.wait(300)]
     finally:
-        for p in procs:
-            p.kill()
+        for w in worlds:
+            w.kill()
     # the single-device Trainer resumes the tensor-parallel LoRA checkpoint
     os.makedirs(d / "tp_to_one")
     shutil.copy(d / "world2" / "lora_ckpt" / "1.pt", d / "tp_to_one" / "1.pt")

@@ -243,7 +243,7 @@ def main() -> None:
                                      from_tokens=False, accum=2)
     out["lora"] = lora_step(inp, vqvae, mesh)
     if world == 4:
-        mesh4 = make_mesh(model=4, cfg=sep)
+        mesh4 = make_mesh(model=4)
         model = ControlVARModel(sep, device="cpu", mesh=mesh4)
         params = shard_params(mesh4, sep_params, mesh4.model_index, sep)
         out["head_cols4"] = params["head"]["kernel"].shape[-1]

@@ -18,8 +18,10 @@ the batches and the forced ids). On its shard of the params it runs:
     and step 2 resumed from the single-device checkpoint in DIR/one_to_tp;
   - one fp32 ControlVARTrainStep step at lr 1e-2 with no random draws, its
     rows the data index's shard of the batch.
-Writes DIR/rank<RANK>_of<WORLD>.pt: the draws, the gathered params after
-each step (gather_params), this rank's whole leaves, loss and grad_norm.
+With inputs.pt's "joint_and_step" set, only the joint draw and the plain
+step run (tests/test_torch_tp_axes.py). Writes DIR/rank<RANK>_of<WORLD>.pt:
+the draws, the gathered params after each step (gather_params), this
+rank's whole leaves, loss and grad_norm.
 Given CLI_PORT, it then leaves the group and runs `cli.main train
 --model_axis MODEL` (depth 2, two steps, --ckpt_dir DIR/cli_ckpt), which
 joins a new group on CLI_PORT from the environment.
@@ -70,7 +72,7 @@ def recorded_draws():
     return calls
 
 
-def sample(inp, model, vqvae, params, out):
+def sample(inp, model, vqvae, params, out, joint_only=False):
     vq = inp["vq_params"]
     calls = recorded_draws()
     fh = model.sample_joint_cfg(params, vqvae, vq, inp["labels"], inp["ct"],
@@ -78,6 +80,8 @@ def sample(inp, model, vqvae, params, out):
                                 top_p=0.0, compute_dtype=torch.float32, decode_img=False)
     out["joint_ids"], out["joint_fh"] = list(calls), [t.clone() for t in fh]
     calls.clear()
+    if joint_only:
+        return
     harness = SamplingHarness(model, vqvae, device="cpu")
     assert harness._cond_mask._tp is model.tp and harness._joint._tp is model.tp
     sampler = stepwise.StepwiseCondSampler(model, vqvae, cfg_scales=(2.0, 2.0, 2.0), top_k=1,
@@ -157,7 +161,7 @@ def main() -> None:
     torch.set_num_threads(1)
     inp = torch.load(os.path.join(directory, "inputs.pt"), weights_only=True)
     cfg, vq_cfg = ControlVARConfig(**inp["cfg"]), VQVAEConfig(**inp["vq_cfg"])
-    mesh = make_mesh(model=model_axis, cfg=cfg)
+    mesh = make_mesh(model=model_axis)
     assert (mesh.data_index, mesh.model_index) == (rank // model_axis, rank % model_axis)
     vqvae = VQVAE(vq_cfg, device="cpu")
     model = ControlVARModel(cfg, device="cpu", mesh=mesh)
@@ -165,9 +169,10 @@ def main() -> None:
     out = {"mesh": (mesh.data, mesh.model, mesh.data_index, mesh.model_index),
            "heads": params["blocks"]["qkv_kernel"].shape[-1] // (3 * cfg.head_dim),
            "round_trip": _flat(gather_params(mesh, params, cfg))}
-    sample(inp, model, vqvae, params, out)
+    light = inp.get("joint_and_step", False)
+    sample(inp, model, vqvae, params, out, joint_only=light)
     out["step"] = train_step(inp, cfg, vqvae, mesh, inp["params"], inp["batch"])
-    if mesh.data == 1:
+    if mesh.data == 1 and not light:
         drop_cfg = ControlVARConfig(**dict(inp["cfg"], cond_drop_rate=0.5,
                                            drop_path_rate=0.5))
         out["drop_step"] = train_step(inp, drop_cfg, vqvae, mesh, inp["params"], inp["batch"],
