@@ -1,0 +1,9 @@
+"""K2 (bisection sampling) over the profiled calls: the bound of its
+launches (`counts.k2_bound_s`, one a scale) over their device time, in %."""
+from cvbench import counts, readers
+
+
+def read(run):
+    m, t = run["config"]["model"], run["traffic"]
+    per_launch = counts.k2_bound_s(m, t["batch"]) / len(m["patch_nums"])
+    return readers.roofline(run, "sample", "K2 sampling", "K2", per_launch)

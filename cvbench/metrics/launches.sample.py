@@ -1,0 +1,6 @@
+"""Device operations a call in the profiled window."""
+from cvbench import readers
+
+
+def read(run):
+    return readers.launches(run, "sample")
