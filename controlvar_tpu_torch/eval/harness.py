@@ -18,6 +18,7 @@ from controlvar_tpu_torch.device import DeviceLike, generator_for, resolve_devic
 from controlvar_tpu_torch.eval.stepwise import StepwiseCondSampler, StepwiseJointSampler
 from controlvar_tpu_torch.models.control_var import ControlVARModel
 from controlvar_tpu_torch.models.vqvae import VQVAE
+from controlvar_tpu_torch.utils.tracker import span
 
 
 def class_shard(num_classes: int, shard_id: int, num_shards: int) -> List[int]:
@@ -96,24 +97,30 @@ class SamplingHarness:
         return self._joint.prepare_params(params)
 
     def _tokenize(self, vq_params, img):
-        return self.vqvae.img_to_ids(vq_params, img.to(self.device),
-                                     compute_dtype=self.compute_dtype)
+        with span("tokenize"):
+            return self.vqvae.img_to_ids(vq_params, img.to(self.device),
+                                         compute_dtype=self.compute_dtype)
 
     def joint(self, params, vq_params, labels, cond_type, generator, **kw):
         """Joint (control, image) generation -> two (B, H, W, 3) in [0, 1]."""
-        return self._joint(params, vq_params, labels, cond_type, generator, **kw)
+        with span("call"):
+            return self._joint(params, vq_params, labels, cond_type, generator, **kw)
 
     def control_conditioned(self, params, vq_params, labels, cond_type, generator,
                             control_imgs, **kw):
         """Teacher-force the control stream from control images (B,H,W,3) in [-1,1]."""
-        c_mask = self._tokenize(vq_params, control_imgs)
-        return self._cond_mask(params, vq_params, labels, cond_type, generator, c_mask, **kw)
+        with span("call"):
+            c_mask = self._tokenize(vq_params, control_imgs)
+            return self._cond_mask(params, vq_params, labels, cond_type, generator, c_mask,
+                                   **kw)
 
     def image_conditioned(self, params, vq_params, labels, cond_type, generator,
                           imgs, **kw):
         """Teacher-force the image stream (control prediction mode)."""
-        c_img = self._tokenize(vq_params, imgs)
-        return self._cond_img(params, vq_params, labels, cond_type, generator, c_img, **kw)
+        with span("call"):
+            c_img = self._tokenize(vq_params, imgs)
+            return self._cond_img(params, vq_params, labels, cond_type, generator, c_img,
+                                  **kw)
 
     def gibbs_refine(self, params, vq_params, labels, cond_type, generator,
                      img_c, img_i, steps: int = 1):

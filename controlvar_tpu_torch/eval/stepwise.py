@@ -15,7 +15,9 @@ of configs with hd != 64 or an odd head count), K8 (the fused cache,
 Per call: prologue (class and cond-type embeddings, SOS), then for each
 scale: the blocks over all CFG rows, the CFG-combined head, one draw, the
 residual canvas update and the next scale's input map; then the VQVAE
-decode of the canvases.
+decode of the canvases. Each of these opens its span (`utils/tracker.py:
+span`): cv/prologue, cv/scale/<si> holding cv/blocks, cv/head, cv/draw and
+cv/canvas, then cv/decode.
 
 Cache modes: "stacked" preallocates the caches of `init_kv_cache`; "seg"
 keeps one (depth, rows, H, l_s, hd) segment per scale, and with
@@ -56,6 +58,7 @@ from controlvar_tpu_torch.models.masks import attn_mask_for_config
 from controlvar_tpu_torch.models.vqvae import VQVAE
 from controlvar_tpu_torch.ops.sampling import (METHODS, gumbel_softmax,
                                                sample_top_k_top_p, smooth_temperature)
+from controlvar_tpu_torch.utils.tracker import span
 
 Params = Dict
 
@@ -159,33 +162,38 @@ class _SamplerBase:
     def _draw(self, logits, generator):
         """The ids of one scale's draw (model rank 0's under tensor
         parallelism)."""
-        return tp_draw(sample_top_k_top_p(logits, self.top_k, self.top_p, generator,
-                                          method=self.sampler), self._tp)
+        with span("draw"):
+            return tp_draw(sample_top_k_top_p(logits, self.top_k, self.top_p, generator,
+                                              method=self.sampler), self._tp)
 
     def _head(self, params, x, cond, weights):
         """The CFG-combined logits of the vocabulary."""
         cfg = self.model.cfg
-        return tfm.head_logits_cfg(params, x, cond, cfg, weights, self._tp)[:, :, : cfg.vocab_size]
+        with span("head"):
+            return tfm.head_logits_cfg(params, x, cond, cfg, weights,
+                                       self._tp)[:, :, : cfg.vocab_size]
 
     def _blocks(self, params, si, next_map, cond, cache_k, cache_v):
         """The blocks over scale si's input map in the cache mode; returns
         (hidden states, caches)."""
-        cfg = self.model.cfg
-        cur, hi = cfg.begin_ends[si]
-        mask_slice = None if self._full_mask is None else self._full_mask[cur:hi, :hi]
-        x = next_map.to(self.compute_dtype)
-        if self.cache_mode == "seg":
-            sk, sv = _windowed_segs(cache_k, cache_v, self.kv_window)
-            x, k_new, v_new = tfm.blocks_decode_seg(params["blocks"], x, cond, cfg, sk, sv,
-                                                    mask_slice=mask_slice,
-                                                    shared_lin=params.get("shared_ada_lin"))
-            return x, cache_k + (k_new,), cache_v + (v_new,)
-        return tfm.blocks_decode(params["blocks"], x, cond, cfg, cache_k, cache_v, cur,
-                                 mask_slice=mask_slice, inplace=self.inplace_decode,
-                                 shared_lin=params.get("shared_ada_lin"), tp=self._tp)
+        with span("blocks"):
+            cfg = self.model.cfg
+            cur, hi = cfg.begin_ends[si]
+            mask_slice = None if self._full_mask is None else self._full_mask[cur:hi, :hi]
+            x = next_map.to(self.compute_dtype)
+            if self.cache_mode == "seg":
+                sk, sv = _windowed_segs(cache_k, cache_v, self.kv_window)
+                x, k_new, v_new = tfm.blocks_decode_seg(
+                    params["blocks"], x, cond, cfg, sk, sv, mask_slice=mask_slice,
+                    shared_lin=params.get("shared_ada_lin"))
+                return x, cache_k + (k_new,), cache_v + (v_new,)
+            return tfm.blocks_decode(params["blocks"], x, cond, cfg, cache_k, cache_v, cur,
+                                     mask_slice=mask_slice, inplace=self.inplace_decode,
+                                     shared_lin=params.get("shared_ada_lin"), tp=self._tp)
 
     def _decode(self, vq_params, fh):
-        return (self.vqvae.fhat_to_img(vq_params, fh, self.compute_dtype) + 1.0) * 0.5
+        with span("decode"):
+            return (self.vqvae.fhat_to_img(vq_params, fh, self.compute_dtype) + 1.0) * 0.5
 
 
 @dataclasses.dataclass
@@ -235,7 +243,8 @@ class StepwiseJointSampler(_SamplerBase):
             # the training side's sign convention for the two SOS halves
             sign = -1.0 if self.mask_first else 1.0
             half = cfg.first_l // 2
-            ch = torch.tensor([sign] * half + [-sign] * half, device=sos.device)
+            with span("wait"):  # a blocking copy from the host
+                ch = torch.tensor([sign] * half + [-sign] * half, device=sos.device)
             sos = sos * ch[None, :, None]
         return cond, sos + lvl_pos
 
@@ -250,34 +259,35 @@ class StepwiseJointSampler(_SamplerBase):
         t = self.cfg_scale * si / (SN - 1)
         logits = self._head(params, x, cond, (1.0 + t, -t))
         ids = self._draw(logits, generator)
-        l = pn * pn
-        # the image tokens sit at [l + num_sp, 2l + num_sp)
-        num_sp = 1 if (cfg.separator and si > 0) else 0
-        img = slice(l + num_sp, 2 * l + num_sp)
-        if self.more_smooth:  # gumbel soft embeddings of both streams
-            factor, tau = smooth_temperature(si, SN)
-            soft = gumbel_softmax(logits * factor, tau, generator=generator)
-            h_all = soft @ vq_params["quantize"]["embedding"].float()
-            h_c, h_i = h_all[:, :l], h_all[:, img]
-        else:
-            h_c = self.quant.embed(vq_params["quantize"], ids[:, :l])
-            h_i = self.quant.embed(vq_params["quantize"], ids[:, img])
-        fh_c, nxt_c = self.quant.next_ar_input(vq_params["quantize"], si, fh_c,
-                                               h_c.reshape(B, pn, pn, z))
-        fh_i, nxt_i = self.quant.next_ar_input(vq_params["quantize"], si, fh_i,
-                                               h_i.reshape(B, pn, pn, z))
-        if si != SN - 1:
-            nl = pns[si + 1] ** 2
-            parts = [self.model._word_embed(params, nxt_c.reshape(B, nl, z)),
-                     self.model._word_embed(params, nxt_i.reshape(B, nl, z))]
-            if cfg.separator:
-                sp1, sp2 = self.model._separators(params, si, self.mask_first, B)
-                parts = [parts[0], sp1, parts[1], sp2]
-            lo, hi = cfg.begin_ends[si + 1]
-            nm = torch.cat(parts, dim=1) + self.model._lvl_pos(params)[:, lo:hi]
-            if cfg.type_pos:
-                nm = nm + self.model._type_pos(params, self.mask_first)[:, lo:hi]
-            next_map = nm.repeat(2, 1, 1)
+        with span("canvas"):
+            l = pn * pn
+            # the image tokens sit at [l + num_sp, 2l + num_sp)
+            num_sp = 1 if (cfg.separator and si > 0) else 0
+            img = slice(l + num_sp, 2 * l + num_sp)
+            if self.more_smooth:  # gumbel soft embeddings of both streams
+                factor, tau = smooth_temperature(si, SN)
+                soft = gumbel_softmax(logits * factor, tau, generator=generator)
+                h_all = soft @ vq_params["quantize"]["embedding"].float()
+                h_c, h_i = h_all[:, :l], h_all[:, img]
+            else:
+                h_c = self.quant.embed(vq_params["quantize"], ids[:, :l])
+                h_i = self.quant.embed(vq_params["quantize"], ids[:, img])
+            fh_c, nxt_c = self.quant.next_ar_input(vq_params["quantize"], si, fh_c,
+                                                   h_c.reshape(B, pn, pn, z))
+            fh_i, nxt_i = self.quant.next_ar_input(vq_params["quantize"], si, fh_i,
+                                                   h_i.reshape(B, pn, pn, z))
+            if si != SN - 1:
+                nl = pns[si + 1] ** 2
+                parts = [self.model._word_embed(params, nxt_c.reshape(B, nl, z)),
+                         self.model._word_embed(params, nxt_i.reshape(B, nl, z))]
+                if cfg.separator:
+                    sp1, sp2 = self.model._separators(params, si, self.mask_first, B)
+                    parts = [parts[0], sp1, parts[1], sp2]
+                lo, hi = cfg.begin_ends[si + 1]
+                nm = torch.cat(parts, dim=1) + self.model._lvl_pos(params)[:, lo:hi]
+                if cfg.type_pos:
+                    nm = nm + self.model._type_pos(params, self.mask_first)[:, lo:hi]
+                next_map = nm.repeat(2, 1, 1)
         return next_map, cache_k, cache_v, fh_c, fh_i
 
     @torch.no_grad()
@@ -290,15 +300,17 @@ class StepwiseJointSampler(_SamplerBase):
         pns = self.model.cfg.patch_nums
         B = labels.shape[0]
         z = self.vqvae.cfg.z_channels
-        cond, next_map = self._prologue(params, labels.to(self.device),
-                                        cond_type.to(self.device))
-        cache_k, cache_v = self._init_caches(2 * B, params)
-        fh_c = torch.zeros(B, pns[-1], pns[-1], z, device=self.device)
-        fh_i = torch.zeros(B, pns[-1], pns[-1], z, device=self.device)
+        with span("prologue"):
+            cond, next_map = self._prologue(params, labels.to(self.device),
+                                            cond_type.to(self.device))
+            cache_k, cache_v = self._init_caches(2 * B, params)
+            fh_c = torch.zeros(B, pns[-1], pns[-1], z, device=self.device)
+            fh_i = torch.zeros(B, pns[-1], pns[-1], z, device=self.device)
         for si in range(len(pns)):
-            next_map, cache_k, cache_v, fh_c, fh_i = self._step(
-                si, params, vq_params, cond, next_map, cache_k, cache_v, fh_c, fh_i,
-                generator)
+            with span(f"scale/{si}"):
+                next_map, cache_k, cache_v, fh_c, fh_i = self._step(
+                    si, params, vq_params, cond, next_map, cache_k, cache_v, fh_c, fh_i,
+                    generator)
         if not self.mask_first:  # the first stream was the image: swap back
             fh_c, fh_i = fh_i, fh_c
         if not decode_img:
@@ -381,31 +393,33 @@ class StepwiseCondSampler(_SamplerBase):
             sample_in = torch.cat([combined[:, :l], combined], dim=1)
         out = self._draw(sample_in, generator)
         a_sampled, b_ids = out[:, :l], out[:, l:]
-        if self.force == "control":
-            ids_a = torch.cat([forced, a_sampled], dim=1)
-        else:
-            ids_a = torch.cat([a_sampled, forced], dim=1)
-        ids = torch.cat([ids_a, b_ids], dim=0)                    # (2B, 2l)
-        if self.more_smooth:  # gumbel soft embeddings of both groups' streams
-            factor, tau = smooth_temperature(si, SN)
-            soft = gumbel_softmax(combined.repeat(2, 1, 1) * factor, tau, generator=generator)
-            h_all = soft @ vq_params["quantize"]["embedding"].float()
-            h_c, h_i = h_all[:, :l], h_all[:, l:]
-        else:
-            h_c = self.quant.embed(vq_params["quantize"], ids[:, :l])
-            h_i = self.quant.embed(vq_params["quantize"], ids[:, l:])
-        fh_c, nxt_c = self.quant.next_ar_input(vq_params["quantize"], si, fh_c,
-                                               h_c.reshape(2 * B, pn, pn, z))
-        fh_i, nxt_i = self.quant.next_ar_input(vq_params["quantize"], si, fh_i,
-                                               h_i.reshape(2 * B, pn, pn, z))
-        if si != SN - 1:
-            nl = pns[si + 1] ** 2
-            nm_c = self.model._word_embed(params, nxt_c.reshape(2 * B, nl, z))
-            nm_i = self.model._word_embed(params, nxt_i.reshape(2 * B, nl, z))
-            nm = torch.cat([nm_c, nm_i], dim=1)
-            lo, hi = cfg.begin_ends[si + 1]
-            nm = nm + self.model._lvl_pos(params)[:, lo:hi]
-            next_map = torch.cat([nm[:B].repeat(R - 1, 1, 1), nm[B:]], dim=0)
+        with span("canvas"):
+            if self.force == "control":
+                ids_a = torch.cat([forced, a_sampled], dim=1)
+            else:
+                ids_a = torch.cat([a_sampled, forced], dim=1)
+            ids = torch.cat([ids_a, b_ids], dim=0)                    # (2B, 2l)
+            if self.more_smooth:  # gumbel soft embeddings of both groups' streams
+                factor, tau = smooth_temperature(si, SN)
+                soft = gumbel_softmax(combined.repeat(2, 1, 1) * factor, tau,
+                                      generator=generator)
+                h_all = soft @ vq_params["quantize"]["embedding"].float()
+                h_c, h_i = h_all[:, :l], h_all[:, l:]
+            else:
+                h_c = self.quant.embed(vq_params["quantize"], ids[:, :l])
+                h_i = self.quant.embed(vq_params["quantize"], ids[:, l:])
+            fh_c, nxt_c = self.quant.next_ar_input(vq_params["quantize"], si, fh_c,
+                                                   h_c.reshape(2 * B, pn, pn, z))
+            fh_i, nxt_i = self.quant.next_ar_input(vq_params["quantize"], si, fh_i,
+                                                   h_i.reshape(2 * B, pn, pn, z))
+            if si != SN - 1:
+                nl = pns[si + 1] ** 2
+                nm_c = self.model._word_embed(params, nxt_c.reshape(2 * B, nl, z))
+                nm_i = self.model._word_embed(params, nxt_i.reshape(2 * B, nl, z))
+                nm = torch.cat([nm_c, nm_i], dim=1)
+                lo, hi = cfg.begin_ends[si + 1]
+                nm = nm + self.model._lvl_pos(params)[:, lo:hi]
+                next_map = torch.cat([nm[:B].repeat(R - 1, 1, 1), nm[B:]], dim=0)
         return next_map, cache_k, cache_v, fh_c, fh_i
 
     def _epilogue(self, vq_params, fh_c, fh_i):
@@ -430,16 +444,18 @@ class StepwiseCondSampler(_SamplerBase):
         B = labels.shape[0]
         pns = cfg.patch_nums
         z = self.vqvae.cfg.z_channels
-        labels = labels.to(self.device)
-        cond_type = cond_type.to(self.device)
-        cond, next_map = self._prologue(params, labels, cond_type)
-        cache_k, cache_v = self._init_caches(self.repeat_num * B, params)
-        fh_c = torch.zeros(2 * B, pns[-1], pns[-1], z, device=self.device)
-        fh_i = torch.zeros(2 * B, pns[-1], pns[-1], z, device=self.device)
+        with span("prologue"):
+            labels = labels.to(self.device)
+            cond_type = cond_type.to(self.device)
+            cond, next_map = self._prologue(params, labels, cond_type)
+            cache_k, cache_v = self._init_caches(self.repeat_num * B, params)
+            fh_c = torch.zeros(2 * B, pns[-1], pns[-1], z, device=self.device)
+            fh_i = torch.zeros(2 * B, pns[-1], pns[-1], z, device=self.device)
         for si in range(cfg.num_scales):
-            next_map, cache_k, cache_v, fh_c, fh_i = self._step_fn(
-                si, params, vq_params, cond, next_map, cache_k, cache_v,
-                fh_c, fh_i, generator, forced_ids[si].to(self.device))
+            with span(f"scale/{si}"):
+                next_map, cache_k, cache_v, fh_c, fh_i = self._step_fn(
+                    si, params, vq_params, cond, next_map, cache_k, cache_v,
+                    fh_c, fh_i, generator, forced_ids[si].to(self.device))
         if not decode_img:
             return fh_c[:B], fh_i[:B]
         return self._epilogue(vq_params, fh_c, fh_i)
@@ -479,20 +495,22 @@ class StepwiseVARSampler(_SamplerBase):
         z = self.vqvae.cfg.z_channels
         x, cache_k, cache_v = self._blocks(params, si, next_map, cond, cache_k, cache_v)
         t = self.cfg_scale * si / (SN - 1)
-        logits = tfm.head_logits_cfg(params, x, cond, cfg, (1.0 + t, -t))
+        with span("head"):
+            logits = tfm.head_logits_cfg(params, x, cond, cfg, (1.0 + t, -t))
         ids = self._draw(logits, generator)
-        if self.more_smooth:  # gumbel soft embeddings
-            factor, tau = smooth_temperature(si, SN)
-            soft = gumbel_softmax(logits * factor, tau, generator=generator)
-            h = soft @ vq_params["quantize"]["embedding"].float()
-        else:
-            h = self.quant.embed(vq_params["quantize"], ids)
-        f_hat, nxt = self.quant.next_ar_input(vq_params["quantize"], si, f_hat,
-                                              h.reshape(B, pn, pn, z))
-        if si != SN - 1:
-            lo, hi = cfg.begin_ends[si + 1]
-            nm = self.model._word_embed(params, nxt.reshape(B, hi - lo, z))
-            next_map = (nm + self.model._lvl_pos(params)[:, lo:hi]).repeat(2, 1, 1)
+        with span("canvas"):
+            if self.more_smooth:  # gumbel soft embeddings
+                factor, tau = smooth_temperature(si, SN)
+                soft = gumbel_softmax(logits * factor, tau, generator=generator)
+                h = soft @ vq_params["quantize"]["embedding"].float()
+            else:
+                h = self.quant.embed(vq_params["quantize"], ids)
+            f_hat, nxt = self.quant.next_ar_input(vq_params["quantize"], si, f_hat,
+                                                  h.reshape(B, pn, pn, z))
+            if si != SN - 1:
+                lo, hi = cfg.begin_ends[si + 1]
+                nm = self.model._word_embed(params, nxt.reshape(B, hi - lo, z))
+                next_map = (nm + self.model._lvl_pos(params)[:, lo:hi]).repeat(2, 1, 1)
         return next_map, cache_k, cache_v, f_hat
 
     @torch.no_grad()
@@ -504,13 +522,18 @@ class StepwiseVARSampler(_SamplerBase):
         cfg = self.model.cfg
         pns = cfg.patch_nums
         B = labels.shape[0]
-        labels = labels.to(self.device)
-        cond = params["class_emb"][torch.cat([labels, torch.full_like(labels, cfg.num_classes)])]
-        next_map = (cond[:, None, :] + params["pos_start"]
-                    + self.model._lvl_pos(params)[:, : cfg.first_l])
-        cache_k, cache_v = self._init_caches(2 * B, params)
-        f_hat = torch.zeros(B, pns[-1], pns[-1], self.vqvae.cfg.z_channels, device=self.device)
+        with span("prologue"):
+            labels = labels.to(self.device)
+            null = torch.full_like(labels, cfg.num_classes)
+            cond = params["class_emb"][torch.cat([labels, null])]
+            next_map = (cond[:, None, :] + params["pos_start"]
+                        + self.model._lvl_pos(params)[:, : cfg.first_l])
+            cache_k, cache_v = self._init_caches(2 * B, params)
+            f_hat = torch.zeros(B, pns[-1], pns[-1], self.vqvae.cfg.z_channels,
+                                device=self.device)
         for si in range(len(pns)):
-            next_map, cache_k, cache_v, f_hat = self._step(
-                si, params, vq_params, cond, next_map, cache_k, cache_v, f_hat, generator)
+            with span(f"scale/{si}"):
+                next_map, cache_k, cache_v, f_hat = self._step(
+                    si, params, vq_params, cond, next_map, cache_k, cache_v, f_hat,
+                    generator)
         return self._decode(vq_params, f_hat) if decode_img else f_hat

@@ -45,6 +45,7 @@ from controlvar_tpu_torch.ops.sampling import (gumbel_softmax, sample_top_k_top_
                                                smooth_temperature)
 from controlvar_tpu_torch.parallel.mesh import tp_of
 from controlvar_tpu_torch.parallel.tensor import broadcast_from_model_root
+from controlvar_tpu_torch.utils.tracker import span
 
 Params = Dict
 
@@ -175,7 +176,8 @@ class ControlVARModel:
         unconditional id num_classes, and each cond type COND_UNCOND_ID,
         independently with probability cond_drop_rate."""
         cfg = self.cfg
-        u = torch.rand(2, labels.shape[0], generator=generator).to(labels.device)
+        with span("wait"):  # a blocking copy of the host's draw to the card
+            u = torch.rand(2, labels.shape[0], generator=generator).to(labels.device)
         labels = torch.where(u[0] < cfg.cond_drop_rate, cfg.num_classes, labels)
         if cfg.multi_cond and cond_type is not None:
             cond_type = torch.where(u[1] < cfg.cond_drop_rate, COND_UNCOND_ID, cond_type)

@@ -60,6 +60,7 @@ from controlvar_tpu_torch.ops.attention import (decode_attention, decode_attenti
                                                 decode_attention_prefix, flash_mha, mha_xla)
 from controlvar_tpu_torch.parallel.tensor import (copy_to_model, gather_from_model,
                                                   reduce_from_model)
+from controlvar_tpu_torch.utils.tracker import span
 
 Params = Dict
 
@@ -322,7 +323,8 @@ def blocks_forward(bp: Params, x: torch.Tensor, cond: torch.Tensor, cfg: VARConf
     keep = None
     if train and generator is not None and cfg.drop_path_rate > 0:
         rates = np.linspace(0.0, cfg.drop_path_rate, D, dtype=np.float32)
-        keep = _drop_path(generator, rates, B, x.dtype).to(x.device)
+        with span("wait"):  # a blocking copy of the host's draw to the card
+            keep = _drop_path(generator, rates, B, x.dtype).to(x.device)
     scale = 1.0 if cfg.cos_attn else cfg.attn_scale
     if use_flash:
         attn_fn = lambda q, k, v: flash_mha(q, k, v, mask, scale, flags)

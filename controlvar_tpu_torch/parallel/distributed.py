@@ -24,6 +24,7 @@ import torch.distributed as dist
 
 from controlvar_tpu_torch.data.build import to_device
 from controlvar_tpu_torch.device import DeviceLike, resolve_device
+from controlvar_tpu_torch.utils.tracker import span
 
 
 def initialize(
@@ -133,13 +134,14 @@ def average_gradients(params: Iterable[torch.Tensor], group=None) -> None:
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=group)
-    flat.div_(dist.get_world_size(group))
-    offset = 0
-    for g in grads:
-        g.copy_(flat[offset: offset + g.numel()].view_as(g))
-        offset += g.numel()
+    with span("allreduce"):
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        flat.div_(dist.get_world_size(group))
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset: offset + g.numel()].view_as(g))
+            offset += g.numel()
 
 
 def barrier() -> None:

@@ -36,6 +36,11 @@ A step with mask_first=False (bidirectional training) weights its loss by
 weight-1 columns spliced in at the separator slots.
 Pre-tokenized batches (`from_tokens=True`) carry `ctrl_ids` and `img_ids`,
 lists of per-scale (B, pn^2) ids, in place of `image` and `mask`.
+
+Inside a torch.profiler window a step opens its spans (`utils/tracker.py:
+span`): cv/step holding cv/tokenize (the encoder passes), cv/forward,
+cv/backward and cv/update (its all-reduce of the gradients in
+cv/allreduce), and cv/wait where the host blocks on the device.
 """
 from __future__ import annotations
 
@@ -57,6 +62,7 @@ from controlvar_tpu_torch.parallel.tensor import (leaf_split, lora_cut_keys, squ
                                                   sum_of_squares, sum_over_model_)
 from controlvar_tpu_torch.train.lr_schedule import lr_wd_at_step
 from controlvar_tpu_torch.train.param_groups import decay_groups, named_leaves
+from controlvar_tpu_torch.utils.tracker import span
 
 Params = Dict
 
@@ -200,26 +206,27 @@ def _clip_and_update(state: TrainState, grad_clip: float, lr: float, wd: float,
     whole model when tp is the mesh of a tensor-parallel model of config
     cfg whose shard state.params is (the cut leaves' squares summed over
     the model group)."""
-    named = [(name, leaf) for name, leaf in named_leaves(state.params)]
-    average_gradients([leaf for _, leaf in named], group=group)
-    grads = [leaf.grad for _, leaf in named if leaf.grad is not None]
-    if tp is None:
-        grad_norm = torch.sqrt(square_sum(grads)).float()
-    else:
-        split = [leaf_split(name, cfg, tp.model) is not None
-                 for name, leaf in named if leaf.grad is not None]
-        grad_norm = torch.sqrt(sum_of_squares(grads, split, tp))
-    # optax's clip_by_global_norm: g * max_norm / norm when norm >= max_norm
-    factor = torch.where(grad_norm < grad_clip, 1.0, grad_clip / grad_norm)
-    for g in grads:
-        g.mul_(factor)
-    groups = state.optimizer.param_groups
-    for group in groups:
-        group["lr"] = lr
-    groups[0]["weight_decay"] = wd
-    state.optimizer.step()
-    state.step += 1
-    return grad_norm
+    with span("update"):
+        named = [(name, leaf) for name, leaf in named_leaves(state.params)]
+        average_gradients([leaf for _, leaf in named], group=group)
+        grads = [leaf.grad for _, leaf in named if leaf.grad is not None]
+        if tp is None:
+            grad_norm = torch.sqrt(square_sum(grads)).float()
+        else:
+            split = [leaf_split(name, cfg, tp.model) is not None
+                     for name, leaf in named if leaf.grad is not None]
+            grad_norm = torch.sqrt(sum_of_squares(grads, split, tp))
+        # optax's clip_by_global_norm: g * max_norm / norm when norm >= max_norm
+        factor = torch.where(grad_norm < grad_clip, 1.0, grad_clip / grad_norm)
+        for g in grads:
+            g.mul_(factor)
+        groups = state.optimizer.param_groups
+        for group in groups:
+            group["lr"] = lr
+        groups[0]["weight_decay"] = wd
+        state.optimizer.step()
+        state.step += 1
+        return grad_norm
 
 
 class _TrainStep:
@@ -252,26 +259,28 @@ class ControlVARTrainStep(_TrainStep):
     def _loss_from_ids(self, params, vq_params, ctrl_ids: List[torch.Tensor],
                        img_ids: List[torch.Tensor], batch, generator, mask_first,
                        loss_denom) -> Tuple[torch.Tensor, Dict]:
-        with torch.no_grad():
-            ctrl_h = self.vqvae.ids_to_var_input(vq_params, ctrl_ids)
-            img_h = self.vqvae.ids_to_var_input(vq_params, img_ids)
-        cfg = self.model.cfg
-        labels, x_tf = interleave_tokens(ctrl_ids, img_ids, ctrl_h, img_h, mask_first,
-                                         separator=cfg.separator, vocab_size=cfg.vocab_size)
-        logits = self.model.forward_train(
-            params, batch["cls"], x_tf, cond_type=batch.get("type"),
-            mask_first=mask_first, generator=generator, train=True,
-            compute_dtype=self.compute_dtype, remat=self.remat)
-        ign = _aligned_ignore(cfg, _order_ignore(batch, mask_first), labels.shape[1])
-        loss = _masked_ce(logits, labels, ign, loss_denom)
-        acc = (logits.argmax(dim=-1) == labels).float().mean()
-        return loss, {"loss": loss.detach(), "acc": acc}
+        with span("forward"):
+            with torch.no_grad():
+                ctrl_h = self.vqvae.ids_to_var_input(vq_params, ctrl_ids)
+                img_h = self.vqvae.ids_to_var_input(vq_params, img_ids)
+            cfg = self.model.cfg
+            labels, x_tf = interleave_tokens(ctrl_ids, img_ids, ctrl_h, img_h, mask_first,
+                                             separator=cfg.separator,
+                                             vocab_size=cfg.vocab_size)
+            logits = self.model.forward_train(
+                params, batch["cls"], x_tf, cond_type=batch.get("type"),
+                mask_first=mask_first, generator=generator, train=True,
+                compute_dtype=self.compute_dtype, remat=self.remat)
+            ign = _aligned_ignore(cfg, _order_ignore(batch, mask_first), labels.shape[1])
+            loss = _masked_ce(logits, labels, ign, loss_denom)
+            acc = (logits.argmax(dim=-1) == labels).float().mean()
+            return loss, {"loss": loss.detach(), "acc": acc}
 
     def loss_fn(self, params, vq_params, batch, generator=None, mask_first=True,
                 loss_denom=None):
         """(loss, {"loss", "acc"}) of a pixel batch: both images are
         tokenized by the frozen VQVAE, without gradient."""
-        with torch.no_grad():
+        with torch.no_grad(), span("tokenize"):
             ctrl_ids = self.vqvae.img_to_ids(vq_params, batch["mask"],
                                              compute_dtype=self.tokenize_dtype)
             img_ids = self.vqvae.img_to_ids(vq_params, batch["image"],
@@ -306,7 +315,8 @@ class ControlVARTrainStep(_TrainStep):
         world = group_size(group)
         if accum <= 1 and world == 1:
             loss, aux = loss_fn(params, vq_params, batch, generator, mask_first)
-            loss.backward()
+            with span("backward"):
+                loss.backward()
             return aux
         n = batch["cls"].shape[0]
         if n % accum:
@@ -319,7 +329,8 @@ class ControlVARTrainStep(_TrainStep):
         for i in range(accum):
             loss_i, aux_i = loss_fn(params, vq_params, _microbatch(batch, i, n // accum),
                                     generator, mask_first, loss_denom=denom)
-            (loss_i / accum).backward()
+            with span("backward"):
+                (loss_i / accum).backward()
             aux = {k: aux[k] + aux_i[k] / accum for k in aux}
         if world > 1:
             both = all_reduce_sum(torch.stack([aux["loss"], aux["acc"]]).detach(), group) / world
@@ -333,15 +344,16 @@ class ControlVARTrainStep(_TrainStep):
         aux = {loss, acc, lr, wd, grad_norm}, grad_norm the global norm
         before clipping. `_backward` says how accum and a process group split
         the batch."""
-        lr, wd = self._lr_wd(state.step)
-        batch = to_device(batch, self.device)
-        state.optimizer.zero_grad(set_to_none=True)
-        aux = self._backward(state.params, vq_params, batch, generator, mask_first,
-                            from_tokens, accum)
-        model = self.model
-        grad_norm = _clip_and_update(state, self.optim.grad_clip, lr, wd, _data_group(model),
-                                     model.tp, model.cfg)
-        return state, dict(aux, lr=lr, wd=wd, grad_norm=grad_norm)
+        with span("step"):
+            lr, wd = self._lr_wd(state.step)
+            batch = to_device(batch, self.device)
+            state.optimizer.zero_grad(set_to_none=True)
+            aux = self._backward(state.params, vq_params, batch, generator, mask_first,
+                                 from_tokens, accum)
+            model = self.model
+            grad_norm = _clip_and_update(state, self.optim.grad_clip, lr, wd,
+                                         _data_group(model), model.tp, model.cfg)
+            return state, dict(aux, lr=lr, wd=wd, grad_norm=grad_norm)
 
 
 class LoRAControlVARTrainStep:
@@ -377,22 +389,24 @@ class LoRAControlVARTrainStep:
         (state, aux) as `ControlVARTrainStep.step` does. base_params (this
         rank's shard under tensor parallelism) is left as it was and gets no
         gradient."""
-        base = self.base
-        model = base.model
-        lr, wd = base._lr_wd(state.step)
-        batch = to_device(batch, base.device)
-        state.optimizer.zero_grad(set_to_none=True)
-        params = apply_lora(base_params, state.params, self.lora_cfg, mesh=model.mesh,
-                            model_cfg=model.cfg)
-        aux = base._backward(params, vq_params, batch, generator, mask_first, from_tokens)
-        if model.tp is not None:
-            # a cut kernel's factors got the part of their gradient that
-            # this rank's shard gives; a whole kernel's got all of it
-            cut_keys = lora_cut_keys(state.params, model.cfg, model.tp.model)
-            sum_over_model_([state.params[k][f].grad for k in cut_keys for f in ("A", "B")],
-                            model.tp)
-        grad_norm = _clip_and_update(state, base.optim.grad_clip, lr, wd, _data_group(model))
-        return state, dict(aux, lr=lr, wd=wd, grad_norm=grad_norm)
+        with span("step"):
+            base = self.base
+            model = base.model
+            lr, wd = base._lr_wd(state.step)
+            batch = to_device(batch, base.device)
+            state.optimizer.zero_grad(set_to_none=True)
+            params = apply_lora(base_params, state.params, self.lora_cfg, mesh=model.mesh,
+                                model_cfg=model.cfg)
+            aux = base._backward(params, vq_params, batch, generator, mask_first, from_tokens)
+            if model.tp is not None:
+                # a cut kernel's factors got the part of their gradient that
+                # this rank's shard gives; a whole kernel's got all of it
+                cut_keys = lora_cut_keys(state.params, model.cfg, model.tp.model)
+                sum_over_model_([state.params[k][f].grad for k in cut_keys
+                                 for f in ("A", "B")], model.tp)
+            grad_norm = _clip_and_update(state, base.optim.grad_clip, lr, wd,
+                                         _data_group(model))
+            return state, dict(aux, lr=lr, wd=wd, grad_norm=grad_norm)
 
 
 class VARTrainStep(_TrainStep):
@@ -402,26 +416,30 @@ class VARTrainStep(_TrainStep):
     tokenized by the frozen VQVAE inside the step, without gradient."""
 
     def loss_fn(self, params, vq_params, batch, generator=None) -> Tuple[torch.Tensor, Dict]:
-        with torch.no_grad():
+        with torch.no_grad(), span("tokenize"):
             ids = self.vqvae.img_to_ids(vq_params, batch["image"],
                                         compute_dtype=self.tokenize_dtype)
-            h = self.vqvae.ids_to_var_input(vq_params, ids)
-        labels, x_tf = torch.cat(ids, dim=1), torch.cat(h, dim=1)
-        logits = self.model.forward_train(params, batch["cls"], x_tf, generator=generator,
-                                          train=True, compute_dtype=self.compute_dtype,
-                                          remat=self.remat)
-        loss = _masked_ce(logits, labels, batch.get("ignore_mask"))
-        acc = (logits.argmax(dim=-1) == labels).float().mean()
-        return loss, {"loss": loss.detach(), "acc": acc}
+        with span("forward"):
+            with torch.no_grad():
+                h = self.vqvae.ids_to_var_input(vq_params, ids)
+            labels, x_tf = torch.cat(ids, dim=1), torch.cat(h, dim=1)
+            logits = self.model.forward_train(params, batch["cls"], x_tf, generator=generator,
+                                              train=True, compute_dtype=self.compute_dtype,
+                                              remat=self.remat)
+            loss = _masked_ce(logits, labels, batch.get("ignore_mask"))
+            acc = (logits.argmax(dim=-1) == labels).float().mean()
+            return loss, {"loss": loss.detach(), "acc": acc}
 
     def step(self, state: TrainState, vq_params, batch,
              generator=None) -> Tuple[TrainState, Dict]:
         """One optimizer step, in place on `state`; returns (state, aux) with
         aux = {loss, acc, lr, wd, grad_norm}."""
-        lr, wd = self._lr_wd(state.step)
-        batch = to_device(batch, self.device)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = self.loss_fn(state.params, vq_params, batch, generator)
-        loss.backward()
-        grad_norm = _clip_and_update(state, self.optim.grad_clip, lr, wd)
-        return state, dict(aux, lr=lr, wd=wd, grad_norm=grad_norm)
+        with span("step"):
+            lr, wd = self._lr_wd(state.step)
+            batch = to_device(batch, self.device)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, aux = self.loss_fn(state.params, vq_params, batch, generator)
+            with span("backward"):
+                loss.backward()
+            grad_norm = _clip_and_update(state, self.optim.grad_clip, lr, wd)
+            return state, dict(aux, lr=lr, wd=wd, grad_norm=grad_norm)

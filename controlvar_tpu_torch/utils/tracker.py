@@ -1,12 +1,15 @@
 """Experiment tracking: wandb when it imports, JSONL otherwise (the
-reference hard-depends on wandb, reference: utils/wandb.py:7-26), and a
-`torch.profiler` trace of a window of train steps.
+reference hard-depends on wandb, reference: utils/wandb.py:7-26), a
+`torch.profiler` trace of a window of train steps, and the spans that mark
+the layers of a call or step inside any profiler window.
 
 wandb is imported inside `Tracker.__init__` and PNGs are written with the
 standard library's zlib: the GPU machine has neither wandb nor PIL.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import os
 import struct
@@ -15,6 +18,8 @@ import zlib
 from typing import Dict, Optional
 
 import numpy as np
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 def write_png(path: str, rgb: np.ndarray) -> None:
@@ -93,8 +98,6 @@ class StepProfiler:
         self._prof = None
 
     def step(self, step: int) -> None:
-        import torch
-
         if step == self.start_step and self._prof is None:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
@@ -109,3 +112,53 @@ class StepProfiler:
             self._prof.export_chrome_trace(os.path.join(
                 self.log_dir, f"trace_steps_{self.start_step}_{self.end_step}.json"))
             self._prof = None
+
+
+# ---- spans -------------------------------------------------------------------
+#
+# The layers of a call (`eval/harness.py`, `eval/stepwise.py`) and of a train
+# step (`train/train_step.py`) open spans named "cv/<name>": cv/call or
+# cv/step holds the rest of one call or step, and cv/wait marks each point
+# where the host blocks on the device. While a torch.profiler window is open
+# (`StepProfiler`, the benchmark's `--trace 1`) a span is a record_function
+# range, on the profiler's clock beside the device's operations, kept in the
+# profiler's memory and written out by whoever owns the window; otherwise it
+# is one shared null context, and costs a flag read.
+
+SPAN_PREFIX = "cv/"
+_NULL_SPAN = contextlib.nullcontext()
+
+if hasattr(_autograd_profiler, "_is_profiler_enabled"):
+    def profiler_enabled() -> bool:
+        """Whether a torch.profiler window is open."""
+        return _autograd_profiler._is_profiler_enabled
+else:
+    profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A range "cv/<name>" while the profiler is on, else a null context."""
+    if not profiler_enabled():
+        return _NULL_SPAN
+    if _gc_span not in gc.callbacks:
+        gc.callbacks.append(_gc_span)
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
+class _GCSpan:
+    """The `gc.callbacks` hook that wraps each collection made while the
+    profiler is on in a cv/gc range (collections never overlap)."""
+
+    _open = None
+
+    def __call__(self, phase: str, info: Dict) -> None:
+        if phase == "start":
+            if profiler_enabled():
+                self._open = torch.profiler.record_function(SPAN_PREFIX + "gc")
+                self._open.__enter__()
+        elif self._open is not None:
+            rf, self._open = self._open, None
+            rf.__exit__(None, None, None)
+
+
+_gc_span = _GCSpan()
