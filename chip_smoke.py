@@ -253,8 +253,17 @@ Run from the root of a checkout. Phases, each fatal on failure:
      and 9 agree with that call's (TP_LOGIT_REL_L2), and one train step
      (K3/K4 60/30 a rank) held at phase 24's limits on the loss, grad_norm
      and the gathered params and gradients of layers 0 and 29 and of every
-     leaf outside the blocks.
-Prints the card, a `kernels` JSON line (K1-K8) and, last,
+     leaf outside the blocks;
+ 29. the blocks' AdaLN kernels (`ops/adaln.py`, csrc/adaln.cu) at every
+     scale's tokens (one stream and two) at 4 and 64 rows, C 1024 and 1920,
+     bf16 and fp32, each within one rounding of a float64 formula and within
+     the sum of its and the plain chain's bounds of the chain; each kernel's,
+     its plain version's and its bound's ms at the serving path's final
+     scale (64 rows x 512 tokens); the three kernels' device time over one
+     layer of a call's ten scales (CUDA graphs) beside its bound. (The
+     serving path, phase 13, holds each kernel to depth x scales launches a
+     call; the training phases hold them to none.)
+Prints the card, a `kernels` JSON line (K1-K8, the AdaLN kernels) and, last,
 {"ok": true, "device": ...}.
 It exits non-zero, printing no result, without CUDA or outside a checkout.
 --profile adds, for each path (and each joint and VAR cache mode), the device busy
@@ -1436,18 +1445,33 @@ def _pixel_batch(torch, B, num_classes, seed, control=True):
     return batch
 
 
+ADALN_SITES = ("adaln_norm", "adaln_add_norm", "adaln_add")
+
+
+def _reset_adaln(adaln) -> None:
+    for name in ADALN_SITES:
+        getattr(adaln, name).launches = 0
+
+
+def _adaln_launches(adaln) -> tuple:
+    """The AdaLN kernels' launches since the last _reset_adaln, in ADALN_SITES' order."""
+    return tuple(getattr(adaln, name).launches for name in ADALN_SITES)
+
+
 def _timed_steps(torch, label, step_fn, expect, n_timed, B, profile_tag=None):
     """One warm-up step, then n_timed timed ones, each ended by a
-    synchronize, with the K3/K4 launches of each held to `expect` and the
-    loss and grad_norm finite; with profile_tag, one more step under the
+    synchronize, with the K3/K4 launches of each held to `expect`, no
+    AdaLN kernel launched, and the loss and grad_norm finite; with profile_tag, one more step under the
     profiler (device busy time, idle share, time by category). Returns
     (s/step, peak GiB of the timed steps, the warm-up loss)."""
     import math
 
+    from controlvar_tpu_torch.ops import adaln
     from controlvar_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
 
     def one():
         flash_attention.launches = flash_attention_bwd.launches = 0
+        _reset_adaln(adaln)
         torch.cuda.synchronize()
         t = time.perf_counter()
         aux = step_fn()
@@ -1456,6 +1480,9 @@ def _timed_steps(torch, label, step_fn, expect, n_timed, B, profile_tag=None):
         counts = (flash_attention.launches, flash_attention_bwd.launches)
         if counts != expect:
             fail(f"{label}: launches (K3, K4) = {counts}, expected {expect}")
+        # under autograd the blocks take the plain chains (ops/adaln.py)
+        if _adaln_launches(adaln) != (0, 0, 0):
+            fail(f"{label}: AdaLN kernel launches {_adaln_launches(adaln)}, expected none")
         loss, norm = float(aux["loss"]), float(aux["grad_norm"])
         if not (math.isfinite(loss) and math.isfinite(norm)):
             fail(f"{label}: loss {loss} grad_norm {norm}")
@@ -1747,6 +1774,7 @@ def main_path_phase(torch, cfg, profile: bool):
     from controlvar_tpu_torch.eval.harness import SamplingHarness
     from controlvar_tpu_torch.models.control_var import ControlVARModel
     from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.ops import adaln
     from controlvar_tpu_torch.ops.attention import decode_attention
     from controlvar_tpu_torch.ops.sample_kernel import sample_top_k_top_p_bisect
 
@@ -1764,6 +1792,7 @@ def main_path_phase(torch, cfg, profile: bool):
 
     def call(seed):
         decode_attention.launches = sample_top_k_top_p_bisect.launches = 0
+        _reset_adaln(adaln)
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = harness.control_conditioned(params, vq_params, labels, cond_type,
@@ -1774,6 +1803,11 @@ def main_path_phase(torch, cfg, profile: bool):
         if counts != (cfg.depth * cfg.num_scales, cfg.num_scales):
             fail(f"main path: launches (K1, K2) = {counts}, expected "
                  f"({cfg.depth * cfg.num_scales}, {cfg.num_scales})")
+        # one launch of each AdaLN kernel a layer-step
+        counts += _adaln_launches(adaln)
+        if counts[2:] != (cfg.depth * cfg.num_scales,) * 3:
+            fail(f"main path: AdaLN launches {counts[2:]}, expected "
+                 f"{cfg.depth * cfg.num_scales} each")
         for t_ in out:
             if tuple(t_.shape) != (B, 256, 256, 3) or not torch.isfinite(t_).all():
                 fail(f"main path: bad canvas {tuple(t_.shape)}")
@@ -1784,7 +1818,8 @@ def main_path_phase(torch, cfg, profile: bool):
     dt_warm, _ = call(10)
     dt, counts = call(11)
     print(f"main path: warm-up call {dt_warm:.3f} s; timed call {dt:.4f} s for "
-          f"{B} images = {B / dt:.3f} img/s; launches K1={counts[0]} K2={counts[1]}")
+          f"{B} images = {B / dt:.3f} img/s; launches K1={counts[0]} K2={counts[1]} "
+          + " ".join(f"{n}={c}" for n, c in zip(ADALN_SITES, counts[2:])))
     if profile:
         breakdown(torch, call,
                   lambda: harness.control_conditioned(params, vq_params, labels, cond_type,
@@ -4270,6 +4305,153 @@ def d30_tp_phase(torch, smi: str):
     return dict(wall=wall, ranks=res, limits=limits)
 
 
+def adaln_phase(torch, patch_nums):
+    """The blocks' AdaLN kernels (`ops/adaln.py`) at every scale's tokens (one
+    stream and two, so odd counts too) at 4 and 64 rows, C 1024 and 1920, bf16
+    and fp32 residuals: each output against a float64 formula within one
+    rounding to the residual dtype, and against its plain version (the eager
+    chain) within the sum of the kernel's bound and the chain's (one half ulp a
+    rounded term), which covers both builds (1 and 2 tokens a block). Then
+    each kernel's, its plain version's and its bound's ms at the serving
+    path's final scale (64 rows x 512 tokens), and the three kernels' device
+    ms summed over one call's scales (CUDA graphs) beside that sum's bound.
+    Returns the kernels-line entries and {C: (ms, bound ms)} of that sum."""
+    from controlvar_tpu_torch.ops import adaln
+    from controlvar_tpu_torch.probes.decode_scales import graph_ms
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    # name: (call, plain, (bf16 (B, l, C) tensors read and written, fp32
+    # modulation rows read, bf16 bias vectors read)), each read or written once
+    norm_args = lambda i: (i["h"], i["s1"], i["sh1"], 1e-6)
+    add_norm_args = lambda i: (i["h"], i["y"], i["b"], i["g1"], i["s2"], i["sh2"], 1e-6)
+    add_args = lambda i: (i["h"], i["y"], i["b"], i["g2"])
+    sites = {
+        "adaln_norm": (lambda i: adaln.adaln_norm(*norm_args(i)),
+                       lambda i: adaln.adaln_norm_plain(*norm_args(i)), (2, 2, 0)),
+        "adaln_add_norm": (lambda i: adaln.adaln_add_norm(*add_norm_args(i)),
+                           lambda i: adaln.adaln_add_norm_plain(*add_norm_args(i)), (4, 3, 1)),
+        "adaln_add": (lambda i: adaln.adaln_add(*add_args(i)),
+                      lambda i: adaln.adaln_add_plain(*add_args(i)), (3, 1, 1))}
+
+    def site_bound(i, counts):
+        n_rows, n_ada, n_bias = counts
+        R, _, C = i["h"].shape
+        return bound_ms(2 * n_rows * i["h"].numel() + 4 * n_ada * R * C + 2 * n_bias * C,
+                        0.0, 1.0)
+
+    def inputs(R, l, C, dtype=torch.bfloat16):
+        """A layer's rows of all layers' modulations (the einsum's layout),
+        cut as the blocks cut them; h with a mean a token."""
+        ada = 0.3 * torch.randn(R, 2, 6, C, generator=g, device="cuda")
+        ada[:, :, :2] += 1.0
+        rows = ada.permute(1, 0, 2, 3)[1].unbind(1)
+        h = torch.randn(R, l, C, generator=g, device="cuda")
+        return dict(h=(h + 2.0 * torch.randn(R, l, 1, generator=g, device="cuda")).to(dtype),
+                    y=(0.5 * torch.randn(R, l, C, generator=g, device="cuda")).to(dtype),
+                    b=(0.1 * torch.randn(C, generator=g, device="cuda")).to(dtype),
+                    **{k: r.reshape(R, 1, C) for k, r in zip(("g1", "g2", "s1", "s2", "sh1",
+                                                               "sh2"), rows)})
+
+    def norm64(x, s, sh):
+        """float64 LN(x) (1 + s) + sh, and the magnitudes of the chain's two
+        rounded terms (the modulated LN, the sum)."""
+        x = x.double()
+        x = x - x.mean(-1, keepdim=True)
+        mod = x / torch.sqrt((x * x).mean(-1, keepdim=True) + 1e-6) * (s.double() + 1)
+        out = mod + sh.double()
+        return out, mod.abs() + out.abs()
+
+    def add64(i, gate):
+        """float64 h + g (y + b), and the magnitudes of the chain's rounded
+        terms (the bias add, the gate, the sum)."""
+        branch = (i["y"].double() + i["b"].double()) * gate.double()
+        out = i["h"].double() + branch
+        return out, 2.0 * branch.abs() + out.abs()
+
+    def bound(want, mag, rel):
+        return rel * mag + 4e-6 * want.abs().max()
+
+    def check(name, i, label):
+        """The kernel's outputs against the formula and the plain version;
+        returns the largest error against the formula."""
+        with torch.no_grad():
+            got, plain = call_of[name](i), plain_of[name](i)
+        got = got if isinstance(got, tuple) else (got,)
+        plain = plain if isinstance(plain, tuple) else (plain,)
+        rel = 2.0 ** -8 if i["h"].dtype == torch.bfloat16 else 1e-5
+        # (kernel output, plain output, float64 of the kernel's input, the
+        # magnitudes of the chain's rounded terms, float64 of the chain's own input)
+        if name == "adaln_norm":
+            want, mag = norm64(i["h"], i["s1"], i["sh1"])
+            outs = [(got[0], plain[0], want, mag, want, mag)]
+        elif name == "adaln_add":
+            want, mag = add64(i, i["g2"])
+            outs = [(got[0], plain[0], want, mag, want, mag)]
+        else:
+            want, mag = add64(i, i["g1"])
+            # the kernel normalises h' as computed, the chain its rounded h'
+            wn, mn = norm64(want, i["s2"], i["sh2"])
+            pn, pm = norm64(plain[0], i["s2"], i["sh2"])
+            outs = [(got[0], plain[0], want, mag, want, mag), (got[1], plain[1], wn, mn, pn, pm)]
+        err = 0.0
+        for k, (a, p, w, m, pw, pmag) in enumerate(outs):
+            a, p = a.double(), p.double()
+            bk, bp = bound(w, w.abs(), rel), bound(pw, pmag, rel)
+            worst = float(((a - w).abs() / bk).max())
+            err = max(err, float((a - w).abs().max()))
+            if not (torch.isfinite(a).all() and worst <= 1.0):
+                fail(f"{name} {label} output {k}: error {worst:.3f} of one rounding's bound")
+            if not float(((p - pw).abs() / bp).max()) <= 1.0:
+                fail(f"{name} {label} output {k}: the plain chain outside its roundings' bound")
+            if pw is w and not bool(((a - p).abs() <= bk + bp).all()):
+                fail(f"{name} {label} output {k}: kernel and plain chain differ by more than "
+                     f"the sum of their bounds")
+        return err
+
+    call_of = {n: v[0] for n, v in sites.items()}
+    plain_of = {n: v[1] for n, v in sites.items()}
+    n_checked, errs = 0, {}
+    for C in (1024, 1920):
+        for dtype in (torch.bfloat16, torch.float32):
+            for R in (4, 64):
+                for pn in patch_nums:
+                    for streams in (1, 2):
+                        i = inputs(R, streams * pn * pn, C, dtype)
+                        for name in sites:
+                            e = check(name, i, f"({R}, {streams * pn * pn}, {C}) {dtype}")
+                            errs[(name, C)] = max(errs.get((name, C), 0.0), e)
+                            n_checked += 1
+                        del i
+    print(f"AdaLN kernels: {n_checked} launches checked (every scale's 1 and 2 streams of "
+          f"tokens at 4 and 64 rows, C 1024 and 1920, bf16 and fp32) against float64 within "
+          f"one rounding and against the plain chains within both bounds")
+
+    R, entries, per_call = 64, [], {}
+    for C in (1024, 1920):
+        i = inputs(R, 16 * 16 * 2, C)
+        for name, (call, plain, counts) in sites.items():
+            ms, plain_ms = cuda_ms(lambda: call(i), 20), cuda_ms(lambda: plain(i), 5)
+            b_ms, b_by = site_bound(i, counts)
+            err = errs[(name, C)]
+            print(f"{name} ({R}, 512, {C}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err:.3e} (all checked shapes)")
+            entries.append(dict(name=f"{name} C{C}", route="cuda",
+                                source="controlvar_tpu_torch/csrc/adaln.cu", replaces=None,
+                                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=None))
+        # one layer's three launches at every scale, device time (CUDA graphs)
+        t = b = 0.0
+        for pn in patch_nums:
+            j = inputs(R, 2 * pn * pn, C)
+            t += graph_ms(lambda: [call(j) for call, _, _ in sites.values()])
+            b += sum(site_bound(j, counts)[0] for _, _, counts in sites.values())
+        per_call[C] = (t, b)
+        print(f"AdaLN kernels, one layer over a call's {len(patch_nums)} scales at {R} rows, "
+              f"C {C}: {t:.4f} ms (x 16 layers at d16, x 30 at d30), bound {b:.4f} ms")
+    torch.cuda.empty_cache()
+    return entries, per_call
+
+
 def category(kernel_name: str) -> str:
     """The device-time category of a kernel (CATEGORIES), else "other"."""
     return next((c for c, keys in CATEGORIES if any(k in kernel_name for k in keys)), "other")
@@ -4366,7 +4548,7 @@ def main() -> None:
     phase("build")
     t = time.time()
     reports = _build.build(["decode_attention", "sample_bisect", "flash_attention",
-                            "decode_prefix", "decode_flat"])
+                            "decode_prefix", "decode_flat", "adaln"])
     print(f"built {sorted(reports) or 'nothing (cached)'} in {time.time() - t:.1f} s")
     for name, rep in reports.items():
         kernel = ""
@@ -4415,7 +4597,8 @@ def main() -> None:
     del var_params
     torch.cuda.empty_cache()
     phase("serving path: ControlVAR-d16 control-conditioned generation, B=16")
-    (k1["launches"], k2["launches"]), img_s = main_path_phase(torch, cfg, profile)
+    (k1["launches"], k2["launches"], *adaln_counts), img_s = main_path_phase(torch, cfg,
+                                                                             profile)
     torch.cuda.empty_cache()
     phase("joint path: ControlVAR-d24 joint generation, B=8, three cache modes")
     joint = joint_path_phase(torch, cfg24, profile)
@@ -4477,6 +4660,9 @@ def main() -> None:
     phase("ControlVAR-d30 over model=2: two ranks on this card (gloo), 15 heads each, a joint "
           "call and a train step against one device")
     d30_tp = d30_tp_phase(torch, smi)
+    phase("the blocks' AdaLN kernels vs float64 and plain at every scale's tokens, 4 and 64 "
+          "rows, C 1024 and 1920; timed at the final scale and summed over a call's scales")
+    adaln_entries, adaln_call = adaln_phase(torch, cfg.patch_nums)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4534,8 +4720,12 @@ def main() -> None:
           f"{tuple(r0['joint_counts'] + r0['step_counts'])}, phase {d30_tp['wall']:.1f} s; on")
     print(smi)
     print(f"chip_smoke: the whole run {time.time() - t_start:.1f} s")
+    print("AdaLN kernels, one layer over a call's scales at 64 rows (ms, bound ms): "
+          + json.dumps(adaln_call))
+    for e in adaln_entries:   # the serving path's timed call, one a layer-step each
+        e["launches"] = dict(zip(ADALN_SITES, adaln_counts))[e["name"].split()[0]]
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in (k1, k2, k3, k4, k5, k6, k7, k8)]}))
+                                  for e in (k1, k2, k3, k4, k5, k6, k7, k8, *adaln_entries)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

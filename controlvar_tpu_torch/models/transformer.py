@@ -4,7 +4,10 @@ One block type: pre-norm (no affine) with per-condition (gamma1, gamma2,
 scale1, scale2, shift1, shift2) modulation, fused QKV with a zero k bias,
 1/(sqrt(hd)*tau) scaling or cosine attention, GELU(tanh) MLP. The residual
 stream runs in the compute dtype (bf16 on the GPU); LayerNorm statistics,
-AdaLN modulation and softmax run in fp32.
+AdaLN modulation and softmax run in fp32. The three AdaLN sites of a layer
+(the attention's pre-norm; the gated attention residual with the FFN's
+pre-norm; the gated FFN residual) go through `ops/adaln.py`: one kernel a
+site on the GPU outside autograd, the eager chains otherwise.
 
 The training forward (`blocks_forward`) runs the layers as a Python loop
 over views of the stacked params, with attention through `flash_mha`
@@ -55,6 +58,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from controlvar_tpu_torch.config import VARConfig
+from controlvar_tpu_torch.ops.adaln import adaln_add, adaln_add_norm, adaln_norm, layer_norm
 from controlvar_tpu_torch.ops.attention import (decode_attention, decode_attention_flat,
                                                 decode_attention_fused, decode_attention_inplace,
                                                 decode_attention_prefix, flash_mha, mha_xla)
@@ -65,14 +69,6 @@ from controlvar_tpu_torch.utils.tracker import span
 Params = Dict
 
 MAX_COS_SCALE = float(np.log(100.0))
-
-
-def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Affine-free LayerNorm with fp32 statistics, cast back to x's dtype."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
-    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 def _trunc_normal(g: torch.Generator, shape, std: float) -> torch.Tensor:
@@ -160,23 +156,22 @@ def _qkv(lp: Params, x: torch.Tensor, cfg: VARConfig, tp=None):
     return q, k, v
 
 
-def _row_parallel_out(y: torch.Tensor, bias: torch.Tensor, tp) -> torch.Tensor:
-    """A row-parallel product's output y plus its bias: with tp, the fp32
-    sum of the model group's partial outputs, the replicated bias added
-    once after the sum."""
-    if tp is None:
-        return y + bias.to(y.dtype)
-    return reduce_from_model(y, tp) + bias.float()
+def _row_parallel(y: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel product's output before its bias: with tp, the fp32
+    sum of the model group's partial outputs (the replicated bias is added
+    once after the sum, in fp32, by the `ops/adaln.py` site that takes it)."""
+    return y if tp is None else reduce_from_model(y, tp)
 
 
 def _ffn(lp: Params, x: torch.Tensor, cfg: VARConfig, tp=None) -> torch.Tensor:
-    """The MLP; fp32 out of a tensor-parallel shard, x's dtype otherwise."""
+    """The MLP before fc2's bias; fp32 out of a tensor-parallel shard, x's
+    dtype otherwise."""
     tp = _split(tp, lp["fc1"]["kernel"].shape[-1], round(cfg.embed_dim * cfg.mlp_ratio))
     if tp is not None:
         x = copy_to_model(x, tp)
     h = x @ lp["fc1"]["kernel"].to(x.dtype) + lp["fc1"]["bias"].to(x.dtype)
     h = F.gelu(h, approximate="tanh")
-    return _row_parallel_out(h @ lp["fc2"]["kernel"].to(x.dtype), lp["fc2"]["bias"], tp)
+    return _row_parallel(h @ lp["fc2"]["kernel"].to(x.dtype), tp)
 
 
 def _ada_all_layers(bp: Params, cond: torch.Tensor, cfg: VARConfig,
@@ -210,9 +205,7 @@ def _ada_parts(ada: torch.Tensor, cfg: VARConfig):
 def _attn_in(lp: Params, h: torch.Tensor, ada: torch.Tensor, cfg: VARConfig, tp=None):
     """A layer's attention inputs: AdaLN-modulated pre-norm -> fused QKV."""
     _, _, s1, _, sh1, _ = _ada_parts(ada, cfg)
-    hn = layer_norm(h, cfg.norm_eps)
-    hn = (hn.float() * (s1 + 1.0) + sh1).to(h.dtype)
-    return _qkv(lp, hn, cfg, tp)
+    return _qkv(lp, adaln_norm(h, s1, sh1, cfg.norm_eps), cfg, tp)
 
 
 def _block_out(lp: Params, h: torch.Tensor, o: torch.Tensor, ada: torch.Tensor,
@@ -223,18 +216,11 @@ def _block_out(lp: Params, h: torch.Tensor, o: torch.Tensor, ada: torch.Tensor,
     g1, g2, _, s2, _, sh2 = _ada_parts(ada, cfg)
     B, H, Lq, hd = o.shape
     o = o.transpose(1, 2).reshape(B, Lq, H * hd)
-    o = _row_parallel_out(o @ lp["proj"]["kernel"].to(o.dtype), lp["proj"]["bias"],
-                          _split(tp, H, cfg.num_heads))
-    o = (o.float() * g1).to(h.dtype)
-    if keep is not None:
-        o = o * keep[0].reshape(B, 1, 1)
-    h = h + o
-    hn = layer_norm(h, cfg.norm_eps)
-    hn = (hn.float() * (s2 + 1.0) + sh2).to(h.dtype)
-    f = (_ffn(lp, hn, cfg, tp).float() * g2).to(h.dtype)
-    if keep is not None:
-        f = f * keep[1].reshape(B, 1, 1)
-    return h + f
+    y = _row_parallel(o @ lp["proj"]["kernel"].to(o.dtype), _split(tp, H, cfg.num_heads))
+    h, hn = adaln_add_norm(h, y, lp["proj"]["bias"], g1, s2, sh2, cfg.norm_eps,
+                           None if keep is None else keep[0])
+    return adaln_add(h, _ffn(lp, hn, cfg, tp), lp["fc2"]["bias"], g2,
+                     None if keep is None else keep[1])
 
 
 def _block_body(lp: Params, h: torch.Tensor, ada: torch.Tensor, cfg: VARConfig,

@@ -89,6 +89,16 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def entry(lib: str, name: str, argtypes):
+    """The C entry `name` of csrc/<lib>.cu, built and typed at first use;
+    it returns a cudaError_t (`check`)."""
+    fn = getattr(load(lib), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def check(err: int, what: str, detail: Optional[str] = None) -> None:
     """Raise if a C entry returned a non-zero cudaError_t."""
     if err != 0:

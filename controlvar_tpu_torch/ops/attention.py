@@ -71,15 +71,6 @@ _ARGTYPES = _ROWS + [_C] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6 + [
     ctypes.c_float, _C]
 
 
-def _entry(lib: str, name: str, argtypes):
-    """The C entry `name` of csrc/<lib>.cu, built and typed at first use."""
-    fn = getattr(_build.load(lib), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _scale_in(dtype: torch.dtype, scale: float) -> torch.Tensor:
     """The attention scale rounded to the working dtype, as q*scale is."""
     return torch.tensor(scale, dtype=dtype)
@@ -167,7 +158,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tens
     out = torch.empty(B, H, l, hd, dtype=q.dtype, device=q.device)
     kl, vl = cache_k[li], cache_v[li]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry("decode_attention", "decode_attention_bf16", _ARGTYPES)(
+    err = _build.entry("decode_attention", "decode_attention_bf16", _ARGTYPES)(
         *_rows(q), kl.data_ptr(), vl.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         B, H, l, cur, *kl.stride()[:3], *vl.stride()[:3],
@@ -225,7 +216,7 @@ def decode_attention_flat(q: torch.Tensor, cache_kt: torch.Tensor, cache_vt: tor
     out = torch.empty(B, H, l, hd, dtype=q.dtype, device=q.device)
     kl, vl = cache_kt[li], cache_vt[li]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry("decode_flat", "decode_flat_bf16", _FLAT_ARGTYPES)(
+    err = _build.entry("decode_flat", "decode_flat_bf16", _FLAT_ARGTYPES)(
         hd, *_rows(q), kl.data_ptr(), vl.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         B, H, l, cur, *kl.stride()[:3], *vl.stride()[:3],
@@ -269,7 +260,7 @@ def decode_attention_fused(q: torch.Tensor, cache_kv: torch.Tensor, li: int, cur
     out = torch.empty(B, H, l, hd, dtype=q.dtype, device=q.device)
     kv = cache_kv[li]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry("decode_attention", "decode_fused_bf16", _FUSED_ARGTYPES)(
+    err = _build.entry("decode_attention", "decode_fused_bf16", _FUSED_ARGTYPES)(
         *_rows(q), kv.data_ptr(), None if mask is None else mask.data_ptr(),
         out.data_ptr(), B, H, l, cur, *kv.stride()[:3],
         float(_scale_in(torch.bfloat16, scale)), stream)
@@ -348,7 +339,7 @@ def decode_attention_prefix(q: torch.Tensor, prefix_k: torch.Tensor,
         mask = mask.contiguous()
     out = torch.empty(B, H, l, hd, dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry("decode_attention", "decode_prefix_bf16", _PREFIX_ARGTYPES)(
+    err = _build.entry("decode_attention", "decode_prefix_bf16", _PREFIX_ARGTYPES)(
         *_rows(q), *_rows(prefix_k), *_rows(prefix_v), *_rows(k_new), *_rows(v_new),
         None if mask is None else mask.data_ptr(), out.data_ptr(), B, H, l, pos,
         float(_scale_in(torch.bfloat16, scale)), stream)
@@ -397,7 +388,7 @@ def decode_attention_inplace(q: torch.Tensor, cache_k: torch.Tensor, cache_v: to
         _check_operand(name, t[li], (B, H, t.shape[3], hd), q.device, what)
     out = torch.empty(B, H, l, hd, dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry("decode_prefix", "decode_inplace_bf16", _INPLACE_ARGTYPES)(
+    err = _build.entry("decode_prefix", "decode_inplace_bf16", _INPLACE_ARGTYPES)(
         *_rows(q), *_rows(cache_k[li]), *_rows(cache_v[li]), *_rows(k_new), *_rows(v_new),
         out.data_ptr(), B, H, l, pos, float(_scale_in(torch.bfloat16, scale)), stream)
     _build.check(err, f"{what} launch")
@@ -567,7 +558,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(B, H, L, hd, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry("flash_attention", "flash_fwd_bf16", _FWD_ARGTYPES)(
+    err = _build.entry("flash_attention", "flash_fwd_bf16", _FWD_ARGTYPES)(
         q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
         v.data_ptr(), *v.stride()[:3], mask.data_ptr(), flags.data_ptr(), out.data_ptr(),
         lse.data_ptr(),
@@ -607,7 +598,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dsum = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty(B, H, L, hd, dtype=q.dtype, device=q.device) for _ in range(3))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry("flash_attention", "flash_bwd_bf16", _BWD_ARGTYPES)(
+    err = _build.entry("flash_attention", "flash_bwd_bf16", _BWD_ARGTYPES)(
         *_rows(q), *_rows(k), *_rows(v), *_rows(g), *_rows(out),
         mask.data_ptr(), flags.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, L, scale_bf, stream)

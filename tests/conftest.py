@@ -44,3 +44,8 @@ def cpu_mesh_devices():
     devs = jax.devices("cpu")
     assert len(devs) >= 8, f"expected 8 virtual CPU devices, got {len(devs)}"
     return devs
+
+
+def pytest_configure(config):
+    # tests that need a CUDA device; they skip inside the test without one
+    config.addinivalue_line("markers", "card: needs a CUDA device (skips without one)")

@@ -114,8 +114,8 @@ def test_reference_rule_sees_the_imports_it_forbids(tmp_path):
 def test_port_has_sources_and_kernels():
     assert len(PORT_FILES) > 10
     assert sorted(p.name for p in (ROOT / "controlvar_tpu_torch" / "csrc").glob("*.cu")) == [
-        "decode_attention.cu", "decode_flat.cu", "decode_prefix.cu", "flash_attention.cu",
-        "sample_bisect.cu"]
+        "adaln.cu", "decode_attention.cu", "decode_flat.cu", "decode_prefix.cu",
+        "flash_attention.cu", "sample_bisect.cu"]
     assert (ROOT / "controlvar_tpu_torch" / "native" / "rle_native.c").exists()
     assert {"build.py", "shards.py", "imagenetc.py", "datasets_extra.py", "rle.py",
             "colormap.py", "transforms.py"} <= {
