@@ -263,6 +263,16 @@ Run from the root of a checkout. Phases, each fatal on failure:
      layer of a call's ten scales (CUDA graphs) beside its bound. (The
      serving path, phase 13, holds each kernel to depth x scales launches a
      call; the training phases hold them to none.)
+ 30. VAR-d36 at 512x512 (FoundationVision/VAR --depth=36 --saln=1 --pn=512:
+     C 2304, 36 heads, cos_attn, shared AdaLN, V 4096, the 2,240-token
+     pyramid), 32 CFG rows: K1 at every scale (l up to 1024, cur up to
+     2,240) on cos_attn inputs, the AdaLN kernels at C 2304 over every
+     scale's tokens at 32 rows in bf16 and fp32, K2 at every scale's 16 pn^2
+     rows of V 4096, each against its plain version and timed at the final
+     scale; then SamplingHarness.class_conditional at B=16 (512x512 images),
+     with K1, K2 and the AdaLN kernels held to depth x scales (K2: scales)
+     launches a call, and those counts in the `kernels` line's d36 and
+     C2304 entries.
 Prints the card, a `kernels` JSON line (K1-K8, the AdaLN kernels) and, last,
 {"ok": true, "device": ...}.
 It exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -572,6 +582,43 @@ def k1_phase(torch, cfg, cfg24, sep_cfg):
                 max_abs_err=max(errs), tp_rank=tp_rank, tp_sep=tp_sep, **full)
 
 
+def _k2_bound(n, V, n_kept):
+    """K2's bound on n rows of V logits with n_kept kept logits. The
+    function's work: one read of the logits and the ids written; per logit
+    the max, the two filters' compares, and x - m and its exp (5 fp32
+    operations); per kept logit Philox4x32-10 (10 rounds of 2 mul.hi, 2
+    mul.lo, 4 xor and 2 adds: 100 int32 operations) and the draw (the
+    uniform's convert and multiply-add, two logs, two negations and the add:
+    7 fp32 operations). fp32 at 67 TFLOP/s; int32 at 132 SMs x 64 INT32
+    lanes x 1.98 GHz = 16.7 TOPS."""
+    t_ops = (5 * n * V + 7 * n_kept) / PEAK_FP32_FLOPS + 100 * n_kept / PEAK_INT32_OPS
+    return bound_ms(4 * n * V + 8 * n, t_ops, 1.0)
+
+
+def _k2_agree(name, l, nz, k, p, every_row):
+    """ids of the kernel and of the plain version on the same noise: equal
+    on every row (top-k alone: the kernel's threshold is the bisection's
+    bit for bit), or on >= 0.999 of the rows (top-p: the kept mass is
+    summed in another order, which may move the crossing); every draw in
+    the plain kept set. Returns the share of rows that differ."""
+    from controlvar_tpu_torch.ops.sample_kernel import (kept_mask_plain, sample_bisect_plain,
+                                                        sample_top_k_top_p_bisect)
+
+    ids_k = sample_top_k_top_p_bisect(l, k, p, noise=nz)
+    ids_p = sample_bisect_plain(l, nz, k, p)
+    share = float((ids_k == ids_p).float().mean())
+    print(f"K2 {name} (top-k {k}, top-p {p}), {l.shape[0]}x{l.shape[1]}: ids equal on "
+          f"{share * l.shape[0]:.0f}/{l.shape[0]} rows ({share:.6f})")
+    if every_row and share < 1.0:
+        fail(f"K2 {name}: ids differ from the plain version's on "
+             f"{l.shape[0] - round(share * l.shape[0])} rows")
+    if share < 0.999:
+        fail(f"K2 {name}: ids agree on only {share:.6f} of {l.shape[0]} rows")
+    if not bool(kept_mask_plain(l, k, p).gather(1, ids_k[:, None]).all()):
+        fail(f"K2 {name}: a drawn id lies outside the plain kept set")
+    return 1.0 - share
+
+
 def k2_phase(torch, V, patch_nums):
     """Bisection sampling vs its plain version; returns the kernels-line entry."""
     from controlvar_tpu_torch.ops.sample_kernel import (
@@ -587,33 +634,13 @@ def k2_phase(torch, V, patch_nums):
 
     noise = gumbel_noise((n, V), gen(3), "cuda")
 
-    def agree(name, l, nz, k, p, every_row):
-        """ids of the kernel and of the plain version on the same noise: equal
-        on every row (top-k alone: the kernel's threshold is the bisection's
-        bit for bit), or on >= 0.999 of the rows (top-p: the kept mass is
-        summed in another order, which may move the crossing); every draw in
-        the plain kept set. Returns the share of rows that differ."""
-        ids_k = sample_top_k_top_p_bisect(l, k, p, noise=nz)
-        ids_p = sample_bisect_plain(l, nz, k, p)
-        share = float((ids_k == ids_p).float().mean())
-        print(f"K2 {name} (top-k {k}, top-p {p}), {l.shape[0]}x{l.shape[1]}: ids equal on "
-              f"{share * l.shape[0]:.0f}/{l.shape[0]} rows ({share:.6f})")
-        if every_row and share < 1.0:
-            fail(f"K2 {name}: ids differ from the plain version's on "
-                 f"{l.shape[0] - round(share * l.shape[0])} rows")
-        if share < 0.999:
-            fail(f"K2 {name}: ids agree on only {share:.6f} of {l.shape[0]} rows")
-        if not bool(kept_mask_plain(l, k, p).gather(1, ids_k[:, None]).all()):
-            fail(f"K2 {name}: a drawn id lies outside the plain kept set")
-        return 1.0 - share
-
     # the same noise to both, at every scale's row count (B * 3 * pn^2), with
     # top-k alone and with top-p
     mismatch = 0.0
     for pn in patch_nums:
         m = 16 * 3 * pn * pn
-        agree(f"{pn}x{pn} scale", logits[:m], noise[:m], top_k, 0.0, True)
-        mismatch = max(mismatch, agree(f"{pn}x{pn} scale", logits[:m], noise[:m], top_k,
+        _k2_agree(f"{pn}x{pn} scale", logits[:m], noise[:m], top_k, 0.0, True)
+        mismatch = max(mismatch, _k2_agree(f"{pn}x{pn} scale", logits[:m], noise[:m], top_k,
                                        top_p, False))
     # ties (values on a grid of 1/4), V = 1000, top-k 0 with top-p, top-k >= V,
     # and flat rows (N(0, 0.01)), where a token more or less at the top-k
@@ -630,7 +657,7 @@ def k2_phase(torch, V, patch_nums):
                                      ("no top-k", logits[:4096], 0, top_p, False),
                                      ("top-k >= V", logits[:4096], V, 0.0, True),
                                      ("top-k >= V", logits[:4096], V + 100, top_p, False)):
-        mismatch = max(mismatch, agree(name, l, noise[:l.shape[0], :l.shape[1]].contiguous(),
+        mismatch = max(mismatch, _k2_agree(name, l, noise[:l.shape[0], :l.shape[1]].contiguous(),
                                        k, p, every_row))
 
     greedy = sample_top_k_top_p_bisect(logits, 1, 0.0, generator=gen(4))
@@ -676,17 +703,8 @@ def k2_phase(torch, V, patch_nums):
           + f"; one call's 10 launches {sum(per_scale):.4f} ms")
     ms = cuda_ms(lambda: sample_top_k_top_p_bisect(logits, top_k, top_p, generator=gen(7)), 20)
     plain_ms = cuda_ms(lambda: sample_bisect_plain(logits, noise, top_k, top_p), 3)
-    # The function's work: one read of the logits and the ids written; per
-    # logit the max, the two filters' compares, and x - m and its exp (5
-    # fp32 operations); per kept logit (the plain kept set of these logits)
-    # Philox4x32-10 (10 rounds of 2 mul.hi, 2 mul.lo, 4 xor and 2 adds: 100
-    # int32 operations) and the draw (the uniform's convert and multiply-add,
-    # two logs, two negations and the add: 7 fp32 operations). fp32 at 67
-    # TFLOP/s; int32 at 132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7 TOPS.
     n_kept = float(kept.sum())
-    nbytes = 4 * n * V + 8 * n
-    t_ops = (5 * n * V + 7 * n_kept) / PEAK_FP32_FLOPS + 100 * n_kept / PEAK_INT32_OPS
-    b_ms, b_by = bound_ms(nbytes, t_ops, 1.0)
+    b_ms, b_by = _k2_bound(n, V, n_kept)
     print(f"K2 final scale ({n}x{V}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by}; {n_kept:.0f} kept logits)")
     return dict(name="sample_top_k_top_p_bisect", route="cuda",
@@ -4305,17 +4323,19 @@ def d30_tp_phase(torch, smi: str):
     return dict(wall=wall, ranks=res, limits=limits)
 
 
-def adaln_phase(torch, patch_nums):
-    """The blocks' AdaLN kernels (`ops/adaln.py`) at every scale's tokens (one
-    stream and two, so odd counts too) at 4 and 64 rows, C 1024 and 1920, bf16
-    and fp32 residuals: each output against a float64 formula within one
-    rounding to the residual dtype, and against its plain version (the eager
-    chain) within the sum of the kernel's bound and the chain's (one half ulp a
-    rounded term), which covers both builds (1 and 2 tokens a block). Then
-    each kernel's, its plain version's and its bound's ms at the serving
-    path's final scale (64 rows x 512 tokens), and the three kernels' device
-    ms summed over one call's scales (CUDA graphs) beside that sum's bound.
-    Returns the kernels-line entries and {C: (ms, bound ms)} of that sum."""
+def adaln_phase(torch, patch_nums, widths=(1024, 1920), rows=(4, 64), streams=(1, 2),
+                served=(64, 2)):
+    """The blocks' AdaLN kernels (`ops/adaln.py`) at every scale's tokens
+    (`streams` streams of pn^2, so odd counts too) at each of `rows` rows and
+    each of `widths`, bf16 and fp32 residuals: each output against a float64
+    formula within one rounding to the residual dtype, and against its plain
+    version (the eager chain) within the sum of the kernel's bound and the
+    chain's (one half ulp a rounded term), which covers both builds (1 and 2
+    tokens a block). Then each kernel's, its plain version's and its bound's
+    ms at the serving path's final scale (`served` = (rows, streams): 64 rows
+    x 512 tokens by default), and the three kernels' device ms summed over one
+    call's scales (CUDA graphs) beside that sum's bound. Returns the
+    kernels-line entries and {C: (ms, bound ms)} of that sum."""
     from controlvar_tpu_torch.ops import adaln
     from controlvar_tpu_torch.probes.decode_scales import graph_ms
 
@@ -4411,29 +4431,30 @@ def adaln_phase(torch, patch_nums):
     call_of = {n: v[0] for n, v in sites.items()}
     plain_of = {n: v[1] for n, v in sites.items()}
     n_checked, errs = 0, {}
-    for C in (1024, 1920):
+    for C in widths:
         for dtype in (torch.bfloat16, torch.float32):
-            for R in (4, 64):
+            for R in rows:
                 for pn in patch_nums:
-                    for streams in (1, 2):
-                        i = inputs(R, streams * pn * pn, C, dtype)
+                    for n_streams in streams:
+                        i = inputs(R, n_streams * pn * pn, C, dtype)
                         for name in sites:
-                            e = check(name, i, f"({R}, {streams * pn * pn}, {C}) {dtype}")
+                            e = check(name, i, f"({R}, {n_streams * pn * pn}, {C}) {dtype}")
                             errs[(name, C)] = max(errs.get((name, C), 0.0), e)
                             n_checked += 1
                         del i
-    print(f"AdaLN kernels: {n_checked} launches checked (every scale's 1 and 2 streams of "
-          f"tokens at 4 and 64 rows, C 1024 and 1920, bf16 and fp32) against float64 within "
-          f"one rounding and against the plain chains within both bounds")
+    print(f"AdaLN kernels: {n_checked} launches checked (every scale of {tuple(patch_nums)} "
+          f"in {streams} streams of tokens at {rows} rows, C {widths}, bf16 and fp32) against "
+          f"float64 within one rounding and against the plain chains within both bounds")
 
-    R, entries, per_call = 64, [], {}
-    for C in (1024, 1920):
-        i = inputs(R, 16 * 16 * 2, C)
+    (R, n_streams), entries, per_call = served, [], {}
+    final = n_streams * patch_nums[-1] ** 2
+    for C in widths:
+        i = inputs(R, final, C)
         for name, (call, plain, counts) in sites.items():
             ms, plain_ms = cuda_ms(lambda: call(i), 20), cuda_ms(lambda: plain(i), 5)
             b_ms, b_by = site_bound(i, counts)
             err = errs[(name, C)]
-            print(f"{name} ({R}, 512, {C}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            print(f"{name} ({R}, {final}, {C}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err:.3e} (all checked shapes)")
             entries.append(dict(name=f"{name} C{C}", route="cuda",
                                 source="controlvar_tpu_torch/csrc/adaln.cu", replaces=None,
@@ -4442,14 +4463,154 @@ def adaln_phase(torch, patch_nums):
         # one layer's three launches at every scale, device time (CUDA graphs)
         t = b = 0.0
         for pn in patch_nums:
-            j = inputs(R, 2 * pn * pn, C)
+            j = inputs(R, n_streams * pn * pn, C)
             t += graph_ms(lambda: [call(j) for call, _, _ in sites.values()])
             b += sum(site_bound(j, counts)[0] for _, _, counts in sites.values())
         per_call[C] = (t, b)
         print(f"AdaLN kernels, one layer over a call's {len(patch_nums)} scales at {R} rows, "
-              f"C {C}: {t:.4f} ms (x 16 layers at d16, x 30 at d30), bound {b:.4f} ms")
+              f"C {C}: {t:.4f} ms (times the depth a call), bound {b:.4f} ms")
     torch.cuda.empty_cache()
     return entries, per_call
+
+
+VAR_D36_PN = (1, 2, 3, 4, 6, 9, 13, 18, 24, 32)   # pn=512: 2,240 tokens
+
+
+def d36_phase(torch):
+    """VAR-d36 at 512x512 (FoundationVision/VAR's --depth=36 --saln=1
+    --pn=512: C 2304, 36 heads of 64, cos_attn, shared AdaLN, V 4096, the
+    2,240-token pyramid) at B = 16 labels, 32 CFG rows. K1 at every scale's
+    (l, cur) (l up to 1024, cur up to 2,240) over a 32-row x 36-head stacked
+    cache on cos_attn inputs (d30_kernel_phase's), timed at the final scale;
+    the AdaLN kernels at C 2304 over the pyramid's tokens at 32 rows, bf16
+    and fp32 (adaln_phase), timed at the final scale; K2 at every scale's
+    16 pn^2 combined rows of V 4096 (16,384 at the last), top-k alone on
+    every row and with top-p, greedy == argmax, timed at the last; then
+    SamplingHarness.class_conditional (cfg 1.5 ramped, top-k 900, top-p
+    0.96, gates raised), a warm-up and a timed call, each with K1, K2 and
+    the AdaLN kernels counted from zero and held to depth x scales (K1,
+    A1-A3) and scales (K2). Returns the kernels-line entries, each with the
+    launches of the timed call, img/s and the calls' peak GiB."""
+    import math
+
+    from controlvar_tpu_torch.config import SampleConfig, VQVAEConfig, var_config_from_depth
+    from controlvar_tpu_torch.eval.harness import SamplingHarness
+    from controlvar_tpu_torch.models.var import VARModel
+    from controlvar_tpu_torch.models.vqvae import VQVAE
+    from controlvar_tpu_torch.ops import adaln
+    from controlvar_tpu_torch.ops.attention import decode_attention, decode_attention_plain
+    from controlvar_tpu_torch.ops.sample_kernel import (gumbel_noise, kept_mask_plain,
+                                                        sample_bisect_plain,
+                                                        sample_top_k_top_p_bisect)
+
+    cfg = var_config_from_depth(36, cos_attn=True, shared_aln=True, drop_path_rate=0.15,
+                                patch_nums=VAR_D36_PN)
+    B, D, S, H, hd, L = 16, cfg.depth, cfg.num_scales, cfg.num_heads, cfg.head_dim, cfg.seq_len
+    R, dev, bf = 2 * B, "cuda", torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(36)
+    sm = torch.exp(torch.clamp(random_scale_mul(torch, (H,), 36), max=math.log(100.0))).to(dev)
+    unit = lambda x: x / x.norm(dim=-1, keepdim=True)
+
+    def rand_q(l):
+        """The strided (R, H, l, hd) q view of a fused QKV output after
+        cos_attn's normalisation and scale_mul."""
+        x = torch.randn(R, l, 3, H, hd, generator=g, device=dev)
+        x[:, :, 0] = unit(x[:, :, 0]) * sm[:, None]
+        return x.to(bf).permute(2, 0, 3, 1, 4)[0]
+
+    ck = unit(torch.randn(2, R, H, L, hd, generator=g, device=dev)).to(bf)
+    cv = torch.randn(2, R, H, L, hd, generator=g, device=dev).to(bf)
+    errs = []
+    for si, (lo, cur) in enumerate(cfg.begin_ends):
+        q, li = rand_q(cur - lo), si % 2
+        kk, vv = ck[li, :, :, :cur], cv[li, :, :, :cur]
+        errs.append(check_close(
+            f"K1 d36 ({R} rows x {H} heads, cos_attn) l={cur - lo} cur={cur}",
+            decode_attention(q, ck, cv, li, cur, 1.0), decode_attention_plain(q, kk, vv, 1.0),
+            decode_attention_plain(q, kk, vv.abs(), 1.0)))
+        del q, kk, vv
+        torch.cuda.empty_cache()
+    lo = cfg.begin_ends[-1][0]
+    k1 = dict(name="decode_attention d36", route="cuda",
+              source="controlvar_tpu_torch/csrc/decode_attention.cu",
+              replaces="controlvar_tpu/ops/attention.py:403", max_abs_err=max(errs),
+              **_k1_times(torch, f"d36 final scale ({R}, {H}, {L - lo}, {hd}) over {L} rows, "
+                          f"cos_attn", rand_q(L - lo), ck, cv, 1, L, 1.0))
+    del ck, cv
+    torch.cuda.empty_cache()
+
+    adaln_entries, _ = adaln_phase(torch, VAR_D36_PN, widths=(cfg.embed_dim,), rows=(R,),
+                                   streams=(1,), served=(R, 1))
+
+    V, top_k, top_p, n = cfg.vocab_size, 900, 0.96, B * VAR_D36_PN[-1] ** 2
+    logits = 3.0 * torch.randn(n, V, generator=g, device=dev)
+    logits[:, :8] += 10.0  # a peaked head, as CFG logits have
+    noise = gumbel_noise((n, V), torch.Generator().manual_seed(37), dev)
+    mismatch = 0.0
+    for pn in VAR_D36_PN:
+        m = B * pn * pn
+        _k2_agree(f"d36 {pn}x{pn} scale", logits[:m], noise[:m], top_k, 0.0, True)
+        mismatch = max(mismatch, _k2_agree(f"d36 {pn}x{pn} scale", logits[:m], noise[:m],
+                                           top_k, top_p, False))
+    gen = lambda seed: torch.Generator().manual_seed(seed)
+    if not torch.equal(sample_top_k_top_p_bisect(logits, 1, 0.0, generator=gen(38)),
+                       logits.argmax(-1)):
+        fail("K2 d36: greedy draw differs from argmax")
+    ms = cuda_ms(lambda: sample_top_k_top_p_bisect(logits, top_k, top_p, generator=gen(39)), 20)
+    plain_ms = cuda_ms(lambda: sample_bisect_plain(logits, noise, top_k, top_p), 3)
+    n_kept = float(kept_mask_plain(logits, top_k, top_p).sum())
+    b_ms, b_by = _k2_bound(n, V, n_kept)
+    print(f"K2 d36 final scale ({n}x{V}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}; {n_kept:.0f} kept logits)")
+    k2 = dict(name="sample_top_k_top_p_bisect d36", route="cuda",
+              source="controlvar_tpu_torch/csrc/sample_bisect.cu",
+              replaces="controlvar_tpu/ops/sample_kernel.py:126", max_abs_err=mismatch, ms=ms,
+              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del logits, noise
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    model, vqvae = VARModel(cfg), VQVAE(VQVAEConfig(patch_nums=VAR_D36_PN))
+    harness = SamplingHarness(model, vqvae, SampleConfig(cfg=(1.5,) * 3, top_k=top_k,
+                                                         top_p=top_p))
+    params = harness.prepare_params(raise_gates(model.init_params(0)))
+    vq_params = vqvae.init_params(1)
+    labels = torch.randint(0, cfg.num_classes, (B,), generator=gen(40))
+    print(f"d36 path: params and ch-160 VQVAE built in {time.time() - t0:.1f} s")
+    want = (D * S, S) + (D * S,) * len(ADALN_SITES)
+
+    def call(seed):
+        _reset(decode_attention, sample_top_k_top_p_bisect)
+        _reset_adaln(adaln)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = harness.class_conditional(params, vq_params, labels, gen(seed))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = ((decode_attention.launches, sample_top_k_top_p_bisect.launches)
+                  + _adaln_launches(adaln))
+        if counts != want:
+            fail(f"d36 path: launches (K1, K2, {', '.join(ADALN_SITES)}) = {counts}, expected "
+                 f"{want}")
+        if tuple(out.shape) != (B, 512, 512, 3) or not torch.isfinite(out).all():
+            fail(f"d36 path: bad images {tuple(out.shape)}")
+        if float(out.min()) < 0.0 or float(out.max()) > 1.0:
+            fail("d36 path: images outside [0, 1]")
+        return dt, counts
+
+    torch.cuda.reset_peak_memory_stats()
+    dt_warm, _ = call(41)
+    dt, counts = call(42)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"d36 path: warm-up call {dt_warm:.3f} s; timed call {dt:.4f} s for {B} images "
+          f"= {B / dt:.3f} img/s; peak allocated {peak:.2f} GiB; launches K1={counts[0]} "
+          f"K2={counts[1]} " + " ".join(f"{site}={c}" for site, c in zip(ADALN_SITES, counts[2:])))
+    del params, vq_params, harness
+    torch.cuda.empty_cache()
+    k1["launches"], k2["launches"] = counts[:2]
+    for e in adaln_entries:
+        e["launches"] = dict(zip(ADALN_SITES, counts[2:]))[e["name"].split()[0]]
+    return [k1, k2, *adaln_entries], B / dt, peak
 
 
 def category(kernel_name: str) -> str:
@@ -4663,6 +4824,9 @@ def main() -> None:
     phase("the blocks' AdaLN kernels vs float64 and plain at every scale's tokens, 4 and 64 "
           "rows, C 1024 and 1920; timed at the final scale and summed over a call's scales")
     adaln_entries, adaln_call = adaln_phase(torch, cfg.patch_nums)
+    phase("VAR-d36 at 512x512 (shared AdaLN, cos_attn, the 2,240-token pyramid): K1, the AdaLN "
+          "kernels at C 2304 and K2 at its shapes, then SamplingHarness.class_conditional, B=16")
+    d36_entries, d36_img_s, d36_peak = d36_phase(torch)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4722,10 +4886,15 @@ def main() -> None:
     print(f"chip_smoke: the whole run {time.time() - t_start:.1f} s")
     print("AdaLN kernels, one layer over a call's scales at 64 rows (ms, bound ms): "
           + json.dumps(adaln_call))
+    print(f"VAR-d36 512 class_conditional B=16: {d36_img_s:.3f} img/s, peak allocated "
+          f"{d36_peak:.2f} GiB; its kernels' entries (name ... d36, C2304) carry that call's "
+          f"launches; on")
+    print(smi)
     for e in adaln_entries:   # the serving path's timed call, one a layer-step each
         e["launches"] = dict(zip(ADALN_SITES, adaln_counts))[e["name"].split()[0]]
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in (k1, k2, k3, k4, k5, k6, k7, k8, *adaln_entries)]}))
+                                  for e in (k1, k2, k3, k4, k5, k6, k7, k8, *adaln_entries,
+                                            *d36_entries)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

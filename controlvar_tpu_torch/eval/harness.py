@@ -3,20 +3,24 @@ conditional generation (tokenize the condition image, teacher-force its
 tokens, generate the other stream), with optional Gibbs refinement; the
 canvases come back decoded. `generate_fid_set` writes the FID-protocol
 image set (images_per_class images of each class of a shard) as PNGs.
+Over a plain VAR model it serves class-conditional generation
+(`class_conditional`) instead.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List
+from typing import List, Union
 
 import numpy as np
 import torch
 
 from controlvar_tpu_torch.config import SampleConfig
 from controlvar_tpu_torch.device import DeviceLike, generator_for, resolve_device
-from controlvar_tpu_torch.eval.stepwise import StepwiseCondSampler, StepwiseJointSampler
+from controlvar_tpu_torch.eval.stepwise import (StepwiseCondSampler, StepwiseJointSampler,
+                                               StepwiseVARSampler)
 from controlvar_tpu_torch.models.control_var import ControlVARModel
+from controlvar_tpu_torch.models.var import VARModel
 from controlvar_tpu_torch.models.vqvae import VQVAE
 from controlvar_tpu_torch.utils.tracker import span
 
@@ -62,9 +66,13 @@ class SamplingHarness:
     is the route of every draw of the three samplers
     (`ops/sampling.py:METHODS`; "sort" keeps K2 out). A model whose mesh
     has a model axis above 1 takes its samplers tensor parallel, on this
-    rank's shard of the params (`eval/stepwise.py`)."""
+    rank's shard of the params (`eval/stepwise.py`).
 
-    model: ControlVARModel
+    A plain `VARModel` builds one `StepwiseVARSampler` (guidance
+    sample_cfg.cfg[0], ramped over the scales) and serves
+    `class_conditional` alone; a ControlVAR model builds no VAR sampler."""
+
+    model: Union[ControlVARModel, VARModel]
     vqvae: VQVAE
     sample_cfg: SampleConfig = SampleConfig()
     compute_dtype: torch.dtype = torch.bfloat16
@@ -81,6 +89,10 @@ class SamplingHarness:
                       compute_dtype=self.compute_dtype, sampler=self.sampler)
         if sc.kv_window is not None:
             common.update(cache_mode="seg", kv_window=sc.kv_window)
+        if self._is_var():
+            self._var = StepwiseVARSampler(self.model, self.vqvae, cfg_scale=sc.cfg[0],
+                                           **common)
+            return
         self._joint = StepwiseJointSampler(self.model, self.vqvae, cfg_scale=sc.cfg[0],
                                            **common)
         only = self.decode_generated_only
@@ -94,7 +106,20 @@ class SamplingHarness:
     def prepare_params(self, params):
         """Cast the block weights to the compute dtype once; call before a
         generation run."""
-        return self._joint.prepare_params(params)
+        return (self._var if self._is_var() else self._joint).prepare_params(params)
+
+    def _is_var(self) -> bool:
+        return isinstance(self.model, VARModel)
+
+    def class_conditional(self, params, vq_params, labels, generator, **kw):
+        """Plain-VAR class-conditional CFG generation -> (B, H, W, 3) in
+        [0, 1] (the final f_hat with decode_img=False). labels: (B,) class
+        ids; generator: a CPU torch.Generator, the source of every draw."""
+        if not self._is_var():
+            raise TypeError("class_conditional serves a VARModel; a ControlVAR model takes "
+                            "joint, control_conditioned or image_conditioned")
+        with span("call"):
+            return self._var(params, vq_params, labels, generator, **kw)
 
     def _tokenize(self, vq_params, img):
         with span("tokenize"):
