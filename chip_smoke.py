@@ -262,7 +262,8 @@ Run from the root of a checkout. Phases, each fatal on failure:
      scale (64 rows x 512 tokens); the three kernels' device time over one
      layer of a call's ten scales (CUDA graphs) beside its bound. (The
      serving path, phase 13, holds each kernel to depth x scales launches a
-     call; the training phases hold them to none.)
+     call; the training phases hold each site to 2 x depth forward and
+     depth backward launches a step, under remat full, dots and dots_attn.)
  30. VAR-d36 at 512x512 (FoundationVision/VAR --depth=36 --saln=1 --pn=512:
      C 2304, 36 heads, cos_attn, shared AdaLN, V 4096, the 2,240-token
      pyramid), 32 CFG rows: K1 at every scale (l up to 1024, cur up to
@@ -273,7 +274,14 @@ Run from the root of a checkout. Phases, each fatal on failure:
      with K1, K2 and the AdaLN kernels held to depth x scales (K2: scales)
      launches a call, and those counts in the `kernels` line's d36 and
      C2304 entries.
-Prints the card, a `kernels` JSON line (K1-K8, the AdaLN kernels) and, last,
+ 31. the AdaLN sites' backward kernels (A4-A6, csrc/adaln.cu) at the d30
+     train step's (8, 1360, 1920) bf16 with drop path, each against its
+     plain backward in float64 and bit-equal across two launches; each
+     kernel's, its plain backward's and its byte bound's ms; one layer's
+     three sites forward, recompute and backward (as remat full runs them)
+     through the eager chains under autograd and through the Functions.
+Prints the card, a `kernels` JSON line (K1-K8, the AdaLN kernels forward and
+backward) and, last,
 {"ok": true, "device": ...}.
 It exits non-zero, printing no result, without CUDA or outside a checkout.
 --profile adds, for each path (and each joint and VAR cache mode), the device busy
@@ -1468,7 +1476,7 @@ ADALN_SITES = ("adaln_norm", "adaln_add_norm", "adaln_add")
 
 def _reset_adaln(adaln) -> None:
     for name in ADALN_SITES:
-        getattr(adaln, name).launches = 0
+        getattr(adaln, name).launches = getattr(adaln, name).bwd_launches = 0
 
 
 def _adaln_launches(adaln) -> tuple:
@@ -1476,12 +1484,26 @@ def _adaln_launches(adaln) -> tuple:
     return tuple(getattr(adaln, name).launches for name in ADALN_SITES)
 
 
-def _timed_steps(torch, label, step_fn, expect, n_timed, B, profile_tag=None):
+def _adaln_per_step(depth):
+    """(forward, backward) launches of each AdaLN site a train step: the
+    forward and the recompute of every layer under each remat policy (full,
+    dots, dots_attn: the kernels are not aten ops, so no policy saves their
+    outputs), and one backward a layer."""
+    return 2 * depth, depth
+
+
+def _adaln_bwd_launches(adaln) -> tuple:
+    return tuple(getattr(adaln, name).bwd_launches for name in ADALN_SITES)
+
+
+def _timed_steps(torch, label, step_fn, expect, n_timed, B, adaln_expect, profile_tag=None):
     """One warm-up step, then n_timed timed ones, each ended by a
-    synchronize, with the K3/K4 launches of each held to `expect`, no
-    AdaLN kernel launched, and the loss and grad_norm finite; with profile_tag, one more step under the
-    profiler (device busy time, idle share, time by category). Returns
-    (s/step, peak GiB of the timed steps, the warm-up loss)."""
+    synchronize, with the K3/K4 launches of each held to `expect`, each
+    AdaLN site's (forward, backward) launches to `adaln_expect`
+    (`_adaln_per_step`), and the loss and grad_norm finite; with
+    profile_tag, one more step under the profiler (device busy time, idle
+    share, time by category). Returns (s/step, peak GiB of the timed steps,
+    the warm-up loss)."""
     import math
 
     from controlvar_tpu_torch.ops import adaln
@@ -1498,9 +1520,11 @@ def _timed_steps(torch, label, step_fn, expect, n_timed, B, profile_tag=None):
         counts = (flash_attention.launches, flash_attention_bwd.launches)
         if counts != expect:
             fail(f"{label}: launches (K3, K4) = {counts}, expected {expect}")
-        # under autograd the blocks take the plain chains (ops/adaln.py)
-        if _adaln_launches(adaln) != (0, 0, 0):
-            fail(f"{label}: AdaLN kernel launches {_adaln_launches(adaln)}, expected none")
+        # under autograd the blocks take the Functions (ops/adaln.py)
+        got = (_adaln_launches(adaln), _adaln_bwd_launches(adaln))
+        if got != ((adaln_expect[0],) * 3, (adaln_expect[1],) * 3):
+            fail(f"{label}: AdaLN (forward, backward) launches {got}, expected "
+                 f"{adaln_expect} a site")
         loss, norm = float(aux["loss"]), float(aux["grad_norm"])
         if not (math.isfinite(loss) and math.isfinite(norm)):
             fail(f"{label}: loss {loss} grad_norm {norm}")
@@ -1520,7 +1544,8 @@ def _timed_steps(torch, label, step_fn, expect, n_timed, B, profile_tag=None):
     print(f"{label}: {n_timed} timed steps {', '.join(f'{t:.4f}' for t in times)} s; "
           f"mean {s_step:.4f} s/step = {B / s_step:.3f} img/s; peak memory {peak:.2f} GiB; "
           f"losses {', '.join(f'{x:.5f}' for x in losses)}; launches per step "
-          f"K3={expect[0]} K4={expect[1]}")
+          f"K3={expect[0]} K4={expect[1]}, each AdaLN site {adaln_expect[0]} forward and "
+          f"{adaln_expect[1]} backward")
     if profile_tag:
         busy, wall, by_cat = device_profile(torch, lambda: one()[0], profile_tag)
         # the profiler slows the host, so the profiled step's idle share
@@ -1567,7 +1592,7 @@ def train_path_phase(torch, cfg, profile: bool):
     step_fn = lambda: stepper.step(state, vq_params, batch, gen)[1]
     expect = _launches_per_step(cfg.depth, "full")
     s_step, peak, loss0 = _timed_steps(torch, "train path", step_fn, expect, n_timed, B,
-                                             "train" if profile else None)
+                                       _adaln_per_step(cfg.depth), "train" if profile else None)
     print(f"train path: step-0 loss {loss0:.5f}, ln V = {math.log(cfg.vocab_size):.5f}")
     if abs(loss0 - math.log(cfg.vocab_size)) > 0.5:
         fail(f"train path: step-0 loss {loss0:.4f} is not near ln V")
@@ -1578,7 +1603,8 @@ def train_path_phase(torch, cfg, profile: bool):
         stepper.remat = remat
         k34 = _launches_per_step(cfg.depth, remat)
         s_r, peak_r, _ = _timed_steps(torch, f"train path, remat {remat}", step_fn, k34,
-                                            3, B, f"train_{remat}" if profile else None)
+                                      3, B, _adaln_per_step(cfg.depth),
+                                      f"train_{remat}" if profile else None)
         policies[remat] = (s_r, peak_r, k34[0])
     print("remat policies, d16 B=8 step: " + "; ".join(
         f"{r} {v[0]:.4f} s/step, peak {v[1]:.2f} GiB, K3 {v[2]} a step"
@@ -1689,7 +1715,7 @@ def finetune_phase(torch, cfg, var_params, profile: bool):
     s_step, peak, _ = _timed_steps(
         torch, "fine-tune (LoRA r16)", lambda: lora_step.step(state, base, vq_params, batch,
                                                               gen)[1], expect, 3, B,
-        "finetune" if profile else None)
+        _adaln_per_step(cfg.depth), "finetune" if profile else None)
     n_lora = sum(t.numel() for _, t in named_leaves(state.params))
     for name, leaf in named_leaves(base):
         if leaf.grad is not None:
@@ -1782,7 +1808,7 @@ def var_train_phase(torch, var_cfg, var_params, profile: bool):
     expect = _launches_per_step(var_cfg.depth, "full")
     s_step, peak, _ = _timed_steps(
         torch, "VAR-d16 train", lambda: stepper.step(state, vq_params, batch, gen)[1], expect,
-        5, B, "var_train" if profile else None)
+        5, B, _adaln_per_step(var_cfg.depth), "var_train" if profile else None)
     _check_train_step(torch, "VAR train step", _tiny_var_train)
     return expect, s_step, peak
 
@@ -2107,7 +2133,7 @@ def separator_data_phase(torch, cfg, profile: bool):
     s_step, peak, _ = _timed_steps(
         torch, "separator/type_pos d16 from-tokens train",
         lambda: stepper.step(state, vq_params, next(shard_batches), gen, from_tokens=True)[1],
-        expect, 3, B, "sep_train" if profile else None)
+        expect, 3, B, _adaln_per_step(cfg.depth), "sep_train" if profile else None)
     return B * n / dt, s_step, peak, expect
 
 
@@ -2312,7 +2338,7 @@ def shared_aln_phase(torch, cfg):
     gen = torch.Generator().manual_seed(18)
     s_step, _, _ = _timed_steps(torch, "shared_aln VAR-d16 train",
                                 lambda: stepper.step(state, vq_params, batch, gen)[1],
-                                _launches_per_step(D, "full"), 1, 8)
+                                _launches_per_step(D, "full"), 1, 8, _adaln_per_step(D))
     return B / dts[1], s_step
 
 
@@ -3770,7 +3796,7 @@ def d30_train_phase(torch, cfg, optim, profile: bool):
     expect = _launches_per_step(cfg.depth, "full")
     s_step, peak, loss0 = _timed_steps(
         torch, "d30 train path", lambda: stepper.step(state, vq_params, batch, gen)[1], expect,
-        3, B, "train_d30" if profile else None)
+        3, B, _adaln_per_step(cfg.depth), "train_d30" if profile else None)
     reserved = torch.cuda.max_memory_reserved() / 2 ** 30
     print(f"d30 train path: step-0 loss {loss0:.5f}, ln V = {math.log(cfg.vocab_size):.5f}; "
           f"peak allocated {peak:.2f} GiB, peak reserved {reserved:.2f} GiB (timed steps)")
@@ -4473,6 +4499,129 @@ def adaln_phase(torch, patch_nums, widths=(1024, 1920), rows=(4, 64), streams=(1
     return entries, per_call
 
 
+def adaln_train_phase(torch, B=8, l=1360, C=1920, depth=30, eps=1e-6):
+    """The AdaLN sites' backward kernels (A4-A6) at the d30 train step's
+    (B, l, C) bf16, drop path on, a layer's strided modulation rows: each
+    against its plain backward on the same values in float64 (h's and y's
+    gradients within one rounding to bf16 plus 1e-5 of their largest, the
+    row and bias gradients within 1e-4 relative L2), a second launch equal
+    bit for bit; then each kernel's device ms (its launches: the kernel and
+    the column sums; torch.profiler), its plain backward's (`*_bwd_plain`,
+    fp32) and its byte bound's; then one layer's three sites forward,
+    recompute and backward (torch.utils.checkpoint, as remat `full` runs
+    them) through the eager chains under autograd and through the
+    Functions, in device ms (host dispatch exceeds the Functions' device
+    time at one layer). Returns the kernels-line entries and the layer's
+    {route: ms}."""
+    from torch.utils.checkpoint import checkpoint
+
+    from controlvar_tpu_torch.ops import adaln
+    from controlvar_tpu_torch.probes.decode_scales import kernel_split
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dev = dict(device="cuda", generator=g)
+    ada = 0.3 * torch.randn(B, 2, 6, C, **dev)      # two layers' rows, the einsum's layout
+    ada[:, :, :2] += 1.0
+    g1, g2, s1, s2, sh1, sh2 = (r.reshape(B, 1, C) for r in ada.permute(1, 0, 2, 3)[1].unbind(1))
+    bf = lambda *shape, scale=1.0: (scale * torch.randn(*shape, **dev)).to(torch.bfloat16)
+    h = (torch.randn(B, l, C, **dev) + 2.0 * torch.randn(B, l, 1, **dev)).to(torch.bfloat16)
+    y, f = bf(B, l, C, scale=0.5), bf(B, l, C, scale=0.5)
+    b1, b2 = (0.1 * torch.randn(C, **dev)).to(torch.bfloat16).float(), \
+        (0.1 * torch.randn(C, **dev)).to(torch.bfloat16).float()
+    keep = ((torch.arange(B, device="cuda") % 5 != 2).float() / 0.9).to(torch.bfloat16)
+    d1, d2, d3 = bf(B, l, C), bf(B, l, C), bf(B, l, C)
+    # name: (kernel call, plain call, names of the gradients, bf16 (B, l, C) tensors read and
+    # written, fp32 rows read and written, fp32 (C,) vectors read and written)
+    sites = {
+        "adaln_norm": (lambda: adaln._norm_bwd_kernel(h, s1, d1, eps),
+                       lambda t: adaln.adaln_norm_bwd_plain(*t(h, s1, d1), eps),
+                       ("h", "scale", "shift"), 3, 3, 0),
+        "adaln_add_norm": (lambda: adaln._add_norm_bwd_kernel(h, y, b1, g1, s2, d1, d2, eps, keep),
+                           lambda t: adaln.adaln_add_norm_bwd_plain(*t(h, y, b1, g1, s2, d1, d2),
+                                                                    eps, t(keep)[0]),
+                           ("h", "y", "bias", "gate", "scale", "shift"), 6, 5, 2),
+        "adaln_add": (lambda: adaln._add_bwd_kernel(f, b2, g2, d3, keep),
+                      lambda t: adaln.adaln_add_bwd_plain(*t(f, b2, g2, d3), t(keep)[0]),
+                      ("h", "f", "bias", "gate"), 3, 2, 2)}
+    same = lambda *ts: ts
+    f64 = lambda *ts: tuple(x.double() for x in ts)
+    entries, errs = [], {}
+    for name, (call, plain, grads, n_big, n_rows, n_vec) in sites.items():
+        got, again = call(), call()
+        want = plain(f64)
+        err = 0.0
+        for gname, a, b, w in zip(grads, got, again, want):
+            if not torch.equal(a, b):
+                fail(f"{name} backward: d{gname} differs between two launches")
+            a, w = a.double(), w.double()
+            if gname in ("h", "y", "f"):
+                bound = 2.0 ** -8 * w.abs() + 1e-5 * w.abs().amax()
+                worst = float(((a - w).abs() / bound).max())
+                if not (torch.isfinite(a).all() and worst <= 1.0):
+                    fail(f"{name} backward: d{gname} error {worst:.3f} of its bound")
+            else:
+                gap = float((a - w).norm() / w.norm())
+                if not gap <= 1e-4:
+                    fail(f"{name} backward: d{gname} relative L2 {gap:.3e} > 1e-4")
+            err = max(err, float((a - w).abs().max()))
+        errs[name] = err
+        del got, again, want
+        split = kernel_split(call, ("_bwd_kernel", "_bwd_sum", "_bwd_batch"), 20)
+        ms, plain_ms = sum(split.values()), cuda_ms(lambda: plain(same), 5)
+        b_ms, b_by = bound_ms(2 * n_big * h.numel() + 4 * n_rows * B * C + 4 * n_vec * C,
+                              0.0, 1.0)
+        print(f"{name} backward ({B}, {l}, {C}) bf16, drop path: kernels {ms:.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items()))
+              + f"), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err "
+              f"{err:.3e} against float64, bit-equal across launches")
+        entries.append(dict(name=f"{name}_bwd C{C}", route="cuda",
+                            source="controlvar_tpu_torch/csrc/adaln.cu", replaces=None,
+                            launches=depth, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    # one layer's three sites under remat full: forward, recompute, backward
+    leaves = dict(h=h, y=y, f=f, ada=ada, b1=b1, b2=b2)
+
+    def layer_ms(norm, add_norm, add):
+        x = {k: v.detach().clone().requires_grad_(True) for k, v in leaves.items()}
+        g1, g2, s1, s2, sh1, sh2 = (r.reshape(B, 1, C)
+                                    for r in x["ada"].permute(1, 0, 2, 3)[1].unbind(1))
+
+        def body(h, y, f):
+            hn1 = norm(h, s1, sh1, eps)
+            h1, hn2 = add_norm(h, y, x["b1"], g1, s2, sh2, eps, keep)
+            return hn1, hn2, add(h1, f, x["b2"], g2, keep)
+
+        def step():
+            for t in x.values():
+                t.grad = None
+            outs = checkpoint(body, x["h"], x["y"], x["f"], use_reentrant=False,
+                              preserve_rng_state=False)
+            torch.autograd.backward(outs, (d1, d2, d3))
+
+        return sum(kernel_split(step, (), 10).values())
+
+    _reset_adaln(adaln)
+    layer = {"eager chains": layer_ms(adaln.adaln_norm_plain, adaln.adaln_add_norm_plain,
+                                      adaln.adaln_add_plain)}
+    if _adaln_launches(adaln) + _adaln_bwd_launches(adaln) != (0,) * 6:
+        fail("AdaLN layer timing: the eager chains launched an AdaLN kernel")
+    layer["Functions"] = layer_ms(adaln.adaln_norm, adaln.adaln_add_norm, adaln.adaln_add)
+    runs = 11     # a warm-up and 10 timed
+    if (_adaln_launches(adaln), _adaln_bwd_launches(adaln)) != ((2 * runs,) * 3, (runs,) * 3):
+        fail(f"AdaLN layer timing: launches {_adaln_launches(adaln)} forward, "
+             f"{_adaln_bwd_launches(adaln)} backward, expected {2 * runs} and {runs} a site")
+    # forward twice (18 bytes an element of bf16 a pass) and backward (24, and the
+    # 6 of autograd's sum of h's two gradients)
+    b_ms = bound_ms(2 * (2 * 9 + 12 + 3) * h.numel(), 0.0, 1.0)[0]
+    print(f"AdaLN sites, one d30 layer ({B}, {l}, {C}) bf16 forward + recompute + backward: "
+          + ", ".join(f"{k} {v:.4f} ms ({depth * v:.2f} ms a {depth}-layer step)"
+                      for k, v in layer.items())
+          + f"; bound {b_ms:.4f} ms; {layer['eager chains'] / layer['Functions']:.2f}x")
+    torch.cuda.empty_cache()
+    return entries, layer
+
+
 VAR_D36_PN = (1, 2, 3, 4, 6, 9, 13, 18, 24, 32)   # pn=512: 2,240 tokens
 
 
@@ -4827,6 +4976,10 @@ def main() -> None:
     phase("VAR-d36 at 512x512 (shared AdaLN, cos_attn, the 2,240-token pyramid): K1, the AdaLN "
           "kernels at C 2304 and K2 at its shapes, then SamplingHarness.class_conditional, B=16")
     d36_entries, d36_img_s, d36_peak = d36_phase(torch)
+    phase("the AdaLN sites' backward kernels at the d30 train step's (8, 1360, 1920) bf16 vs "
+          "float64 and plain; one layer's sites forward, recompute and backward, eager chains "
+          "against the Functions")
+    bwd_entries, bwd_layer = adaln_train_phase(torch)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4890,11 +5043,13 @@ def main() -> None:
           f"{d36_peak:.2f} GiB; its kernels' entries (name ... d36, C2304) carry that call's "
           f"launches; on")
     print(smi)
+    print("AdaLN sites, one d30 layer forward + recompute + backward (ms): "
+          + json.dumps(bwd_layer))
     for e in adaln_entries:   # the serving path's timed call, one a layer-step each
         e["launches"] = dict(zip(ADALN_SITES, adaln_counts))[e["name"].split()[0]]
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in (k1, k2, k3, k4, k5, k6, k7, k8, *adaln_entries,
-                                            *d36_entries)]}))
+                                            *d36_entries, *bwd_entries)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -7,7 +7,8 @@ stream runs in the compute dtype (bf16 on the GPU); LayerNorm statistics,
 AdaLN modulation and softmax run in fp32. The three AdaLN sites of a layer
 (the attention's pre-norm; the gated attention residual with the FFN's
 pre-norm; the gated FFN residual) go through `ops/adaln.py`: one kernel a
-site on the GPU outside autograd, the eager chains otherwise.
+site on the GPU, under autograd with a hand-written backward kernel; the
+eager chains on the CPU.
 
 The training forward (`blocks_forward`) runs the layers as a Python loop
 over views of the stacked params, with attention through `flash_mha`

@@ -1,5 +1,7 @@
-"""The blocks' AdaLN sites (`ops/adaln.py`): the plain versions and the
-wrappers' dispatch on the CPU; the kernels (`csrc/adaln.cu`) on the card.
+"""The blocks' AdaLN sites (`ops/adaln.py`): the plain versions, their
+closed-form backward, the autograd Functions (with the plain versions in
+the kernels' place) and the wrappers' dispatch on the CPU; the kernels
+(`csrc/adaln.cu`), forward and backward, on the card.
 
 Each site is held against a float64 formula of the same inputs, by a bound
 that counts the roundings to the residual dtype the version makes: one per
@@ -187,19 +189,235 @@ def test_wrappers_take_the_plain_path_on_the_cpu(site, grad):
 
 
 @pytest.mark.parametrize("site", SITES)
-def test_dispatch_rule(site):
-    """Off the CPU: the plain version under autograd when an input requires
-    grad, else the kernel, which takes CUDA tensors only (meta tensors stand
-    in for a device here: without grad the wrapper raises)."""
+def test_dispatch_rule(site, monkeypatch):
+    """Off the CPU: under autograd, when an input requires grad, the
+    autograd Function, whose forward is the kernel; else the kernel called
+    directly. The kernels take CUDA tensors only (meta tensors stand in for
+    a device here): both routes reach the kernel, inside the Function under
+    autograd, and raise there."""
     ins = _inputs(site, 2, 5, 64, torch.bfloat16, torch.bfloat16, False, "layer",
                   device="meta")
     ins["h"].requires_grad_(True)
+    kernel = getattr(adaln, KERNELS[site])
+    reached = []
+
+    def spy(*args, **kw):
+        # autograd is off inside a Function's forward, on at a direct call
+        reached.append(torch.is_grad_enabled())
+        return kernel(*args, **kw)
+
+    monkeypatch.setattr(adaln, KERNELS[site], spy)
     before = _launches()
-    out = _flat(_call(site, ins))
-    assert all(t.device.type == "meta" and t.shape == ins["h"].shape for t in out)
-    assert _launches() == before
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        _call(site, ins)
     with torch.no_grad(), pytest.raises(ValueError, match="unsupported device meta"):
         _call(site, ins)
+    assert reached == [False, False]
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        ins["h"].requires_grad_(False)
+        _call(site, ins)
+    assert reached == [False, False, True]
+    assert _launches() == before
+
+
+# ---- the backward: closed form (CPU) ------------------------------------------
+
+KERNELS = {"norm": "_norm_kernel", "add_norm": "_add_norm_kernel", "add": "_add_kernel"}
+BWD_KERNELS = {"norm": "_norm_bwd_kernel", "add_norm": "_add_norm_bwd_kernel",
+               "add": "_add_bwd_kernel"}
+NEEDS = {"norm": ("h", "s1", "sh1"), "add_norm": ("h", "y", "bias", "g1", "s2", "sh2"),
+         "add": ("h", "y", "bias", "g2")}
+
+
+def _upstream(site, ins, seed=1):
+    """Random gradients of the site's outputs, in the residual dtype."""
+    g = torch.Generator().manual_seed(seed)
+    h = ins["h"]
+    n = 2 if site == "add_norm" else 1
+    return [torch.randn(h.shape, generator=g).to(h.dtype).to(h.device) for _ in range(n)]
+
+
+def _formula_grads(site, ins, ups):
+    """Autograd of the float64 formula (`_norm64`, `_add64`: the kernels'
+    forward, no intermediate rounding) at the inputs' values: the gradients
+    of NEEDS[site] for the upstream gradients `ups`."""
+    leaves = {k: ins[k].detach().double().requires_grad_(True) for k in NEEDS[site]}
+    keep = ins.get("keep")
+    if site == "norm":
+        outs = [_norm64(leaves["h"], leaves["s1"], leaves["sh1"])[0]]
+    elif site == "add":
+        outs = [_add64(leaves["h"], leaves["y"], leaves["bias"], leaves["g2"], keep)[0]]
+    else:
+        h1 = _add64(leaves["h"], leaves["y"], leaves["bias"], leaves["g1"], keep)[0]
+        outs = [h1, _norm64(h1, leaves["s2"], leaves["sh2"])[0]]
+    torch.autograd.backward(outs, [u.double() for u in ups])
+    return [leaves[k].grad for k in NEEDS[site]]
+
+
+def _bwd(site, ins, ups, suffix="_plain", needs=None):
+    """A site's backward (the plain version, or a kernel launcher given by
+    suffix=None) on ins and the upstream gradients."""
+    kw = {} if needs is None else {"needs": needs}
+    fn = (getattr(adaln, f"adaln_{site}_bwd_plain") if suffix == "_plain" else
+          getattr(adaln, BWD_KERNELS[site]))
+    if site == "norm":
+        return fn(ins["h"], ins["s1"], ups[0], EPS, **kw)
+    if site == "add":
+        return fn(ins["y"], ins["bias"], ins["g2"], ups[0], ins["keep"], **kw)
+    return fn(ins["h"], ins["y"], ins["bias"], ins["g1"], ins["s2"], ups[0], ups[1], EPS,
+              ins["keep"], **kw)
+
+
+def _check_grads(what, got, want, ins, names, rel_sum):
+    """Each gradient in its input's dtype and shape, against float64 `want`:
+    h's and y's within one rounding to their dtype plus 1e-5 of their
+    largest (fp32 arithmetic), the row and bias sums within rel_sum of their
+    norm."""
+    for name, a, w in zip(names, got, want):
+        ref = ins[name]
+        assert a.dtype == ref.dtype and a.shape == ref.shape, (what, name, a.dtype, a.shape)
+        a, w = a.double().cpu(), w.double().cpu()
+        assert torch.isfinite(a).all(), (what, name)
+        if name in ("h", "y"):
+            rel = ULP_BF16 if ref.dtype == torch.bfloat16 else REL_FP32
+            bound = rel * w.abs() + 1e-5 * w.abs().amax()
+            worst = float(((a - w).abs() / bound).max())
+            assert worst <= 1.0, f"{what} d{name}: largest err/bound {worst:.3f}"
+        else:
+            gap = float((a - w).norm() / w.norm())
+            assert gap <= rel_sum, f"{what} d{name}: relative L2 {gap:.3e}"
+
+
+def _bwd_cases():
+    for site in SITES:
+        for dtype in (torch.bfloat16, torch.float32):
+            tp = site != "norm" and dtype == torch.bfloat16
+            for branch in (dtype, torch.float32) if tp else (dtype,):
+                for keep in ((False,) if site == "norm" else (False, True)):
+                    for modulation in ("layer", "broadcast"):
+                        yield pytest.param(
+                            site, dtype, branch, keep, modulation,
+                            id=f"{site}-{str(dtype)[6:]}-y_{str(branch)[6:]}"
+                               f"{'-keep' if keep else ''}-{modulation}")
+
+
+@pytest.mark.parametrize("site,dtype,branch,keep,modulation", list(_bwd_cases()))
+def test_plain_backward_against_float64_autograd(site, dtype, branch, keep, modulation):
+    """`*_bwd_plain` against autograd of the float64 formula: on float64
+    inputs to 1e-12 (the closed form itself), and on the inputs' own dtypes
+    (bf16 or fp32 residual, a tensor-parallel fp32 branch and bias, drop
+    path or none, (B, 1, C) or (1, 1, C) rows, whose gradient sums the batch
+    too) within one rounding (fp32 sums: 1e-5)."""
+    ins = _inputs(site, 3, 7, 1024, dtype, branch, keep, modulation)
+    if site != "norm":
+        ins["bias"] = ins["bias"].float()      # the parameter's dtype; exact in y's
+    ups = _upstream(site, ins)
+    want = _formula_grads(site, ins, ups)
+    f64 = {k: (v if v is None else v.double()) for k, v in ins.items()}
+    exact = _bwd(site, f64, [u.double() for u in ups])
+    for name, a, w in zip(NEEDS[site], exact, want):
+        assert a.dtype == torch.float64, name
+        assert float((a - w).abs().max()) <= 1e-12 * float(w.abs().max()), name
+    _check_grads(site, _bwd(site, ins, ups), want, ins, NEEDS[site], 1e-5)
+
+
+@pytest.mark.parametrize("site", SITES)
+def test_plain_backward_needs(site):
+    """A gradient not asked for is None; the others are those of the full
+    call bit for bit; `adaln_add`'s dh is the upstream gradient itself."""
+    ins = _inputs(site, 2, 5, 64, torch.bfloat16, torch.float32, True, "layer")
+    ups = _upstream(site, ins)
+    full = _bwd(site, ins, ups)
+    n = len(NEEDS[site])
+    for which in ([i % 2 == 0 for i in range(n)], [i % 2 == 1 for i in range(n)]):
+        part = _bwd(site, ins, ups, needs=tuple(which))
+        for asked, a, b in zip(which, part, full):
+            assert (a is None) != asked and (a is None or torch.equal(a, b))
+    if site == "add":
+        assert full[0] is ups[0]
+
+
+def _plain_in_the_kernels_place(monkeypatch):
+    """Route every site with an input that requires grad through its
+    Function on the CPU, with the plain forward and backward in the
+    kernels' place (the Functions' plumbing, without a device)."""
+    route = adaln._route
+    monkeypatch.setattr(adaln, "_route", lambda *t: "function" if torch.is_grad_enabled() and any(
+        a is not None and a.requires_grad for a in t) else route(*t))
+    for site in SITES:
+        monkeypatch.setattr(adaln, KERNELS[site], getattr(adaln, f"adaln_{site}_plain"))
+        monkeypatch.setattr(adaln, BWD_KERNELS[site], getattr(adaln, f"adaln_{site}_bwd_plain"))
+
+
+@pytest.mark.parametrize("modulation", ["layer", "broadcast"])
+@pytest.mark.parametrize("site", SITES)
+def test_functions_against_float64_autograd(site, modulation, monkeypatch):
+    """Each Function (plain versions in the kernels' place) under autograd
+    on float64 inputs: every input's gradient that of the float64 formula,
+    keep's none."""
+    _plain_in_the_kernels_place(monkeypatch)
+    ins = _inputs(site, 3, 7, 64, torch.float32, torch.float32, True, modulation)
+    ins = {k: (v if v is None else v.double().requires_grad_(k in NEEDS[site]))
+           for k, v in ins.items()}
+    ups = [u.double() for u in _upstream(site, ins)]
+    torch.autograd.backward(list(_flat(_call(site, ins))), ups)
+    want = _formula_grads(site, ins, ups)
+    for name, w in zip(NEEDS[site], want):
+        got = ins[name].grad
+        assert got.shape == ins[name].shape
+        assert float((got - w).abs().max()) <= 1e-12 * float(w.abs().max()), name
+    assert ins.get("keep") is None or ins["keep"].grad is None
+
+
+@pytest.mark.parametrize("remat", ["full", "dots", "dots_attn"])
+def test_blocks_through_the_functions(remat, monkeypatch):
+    """A tiny `blocks_forward` train step with drop path, under each remat
+    policy, through the Functions (plain versions in the kernels' place):
+    the gradient of every block leaf and of the input that of the plain
+    chains within fp32 arithmetic; each site's forward runs twice a layer
+    (forward and recompute) and its backward once."""
+    import numpy as np
+
+    from controlvar_tpu_torch.models import transformer as tfm
+
+    cfg = VARConfig(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4),
+                    drop_path_rate=0.1)
+    g = torch.Generator().manual_seed(0)
+    bp = tfm.init_block_params(g, cfg)
+    bp["ada_lin"]["bias"][:, :256] += 1.0     # the gates open
+    L = int(np.sum(np.square(cfg.patch_nums)))
+    x0, cond = torch.randn(2, L, 128, generator=g), torch.randn(2, 128, generator=g)
+    w = torch.randn(2, L, 128, generator=g)
+    mask = torch.ones(L, L, dtype=torch.bool).tril()
+
+    def grads():
+        p = {k: ({kk: vv.clone().requires_grad_(True) for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.clone().requires_grad_(True))
+             for k, v in bp.items()}
+        x = x0.clone().requires_grad_(True)
+        out = tfm.blocks_forward(p, x, cond, cfg, mask, train=True,
+                                 generator=torch.Generator().manual_seed(5), remat=remat)
+        (out * w).sum().backward()
+        return [x.grad] + [leaf.grad for v in p.values()
+                           for leaf in (v.values() if isinstance(v, dict) else [v])]
+
+    want = grads()
+    _plain_in_the_kernels_place(monkeypatch)
+    counted = {}
+    for site in SITES:
+        for attr, name in ((KERNELS, "fwd"), (BWD_KERNELS, "bwd")):
+            fn = getattr(adaln, attr[site])
+
+            def counting(*a, _fn=fn, _key=(site, name), **kw):
+                counted[_key] = counted.get(_key, 0) + 1
+                return _fn(*a, **kw)
+
+            monkeypatch.setattr(adaln, attr[site], counting)
+    got = grads()
+    assert counted == {(s, k): n for s in SITES
+                       for k, n in (("fwd", 2 * cfg.depth), ("bwd", cfg.depth))}
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
 # ---- the kernels (card) --------------------------------------------------------
@@ -271,10 +489,72 @@ def _tiny(**kw):
                             vocab_size=128, num_classes=10, **kw)
 
 
+def _card_bwd_case(site, B, l, C, dtype, branch, keep, modulation, cuda, seed=0):
+    ins = _inputs(site, B, l, C, dtype, branch, keep, modulation, seed=seed, device=cuda)
+    if site != "norm":
+        ins["bias"] = ins["bias"].float()
+    return ins, _upstream(site, ins, seed + 1)
+
+
+def _check_bwd_kernel(site, ins, ups, needs=None):
+    """The backward kernel against the plain backward on the same values in
+    float64 (`_check_grads`: h's and y's within one rounding, the row and
+    bias sums within 1e-4 relative L2); a second launch on the same inputs
+    gives the same gradients bit for bit; each launch adds one to the
+    site's bwd_launches."""
+    before = getattr(adaln, f"adaln_{site}").bwd_launches
+    got = _bwd(site, ins, ups, suffix=None, needs=needs)
+    again = _bwd(site, ins, ups, suffix=None, needs=needs)
+    assert getattr(adaln, f"adaln_{site}").bwd_launches == before + 2
+    f64 = {k: (v if v is None else v.double()) for k, v in ins.items()}
+    want = _bwd(site, f64, [u.double() for u in ups], needs=needs)
+    names = [n for n, w in zip(NEEDS[site], want) if w is not None]
+    assert [n for n, a in zip(NEEDS[site], got) if a is not None] == names
+    got, again, want = ([t for t in ts if t is not None] for ts in (got, again, want))
+    _check_grads(site, got, want, ins, names, 1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("C", WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("site", SITES)
+def test_backward_kernel_at_the_train_step(cuda, site, dtype, C):
+    """Each backward kernel at the d30 train step's (8, 1360, C) with drop
+    path and a layer's modulation rows, C 1024 and 1920, bf16 and fp32."""
+    _check_bwd_kernel(site, *_card_bwd_case(site, 8, 1360, C, dtype, dtype, True, "layer",
+                                            cuda))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("variant", ["fp32_branch", "broadcast", "shared_aln", "no_keep",
+                                     "needs", "wide", "ragged"])
+@pytest.mark.parametrize("site", SITES)
+def test_backward_kernel_variants(cuda, site, variant):
+    """The tensor-parallel fp32 branch and bias, (1, 1, C) rows (the batch
+    summed too), shared_aln rows, no drop path, part of the gradients asked
+    for, C 2304 (512-thread blocks) and a token count that no block size
+    divides."""
+    C = 2304 if variant == "wide" else 1920
+    branch = torch.float32 if variant == "fp32_branch" else torch.bfloat16
+    modulation = {"broadcast": "broadcast", "shared_aln": "shared_aln"}.get(variant, "layer")
+    l = 1009 if variant == "ragged" else 50
+    ins, ups = _card_bwd_case(site, 6, l, C, torch.bfloat16, branch, variant != "no_keep",
+                              modulation, cuda)
+    needs = None
+    if variant == "needs":
+        needs = tuple(i % 2 == 1 for i in range(len(NEEDS[site])))
+    _check_bwd_kernel(site, ins, ups, needs)
+
+
 @pytest.mark.card
 def test_blocks_decode_launches(cuda):
     """One blocks_decode adds 3 x depth launches under no_grad (one a site a
-    layer) and none under autograd with parameters that require grad."""
+    layer); under autograd with parameters that require grad it takes the
+    Functions, as many forward launches, and its backward one backward
+    launch a layer of `adaln_add_norm` and `adaln_add`; none of
+    `adaln_norm`, whose output reaches the loss only through K1, which has
+    no backward."""
     from controlvar_tpu_torch.models import transformer as tfm
 
     cfg = _tiny()
@@ -284,14 +564,20 @@ def test_blocks_decode_launches(cuda):
           for k, v in tfm.init_block_params(g, cfg).items()}
     x = torch.randn(4, 5, 128, generator=g).to(cuda, torch.bfloat16)
     cond = torch.randn(4, 128, generator=g).to(cuda)
-    for grad, added in ((False, cfg.depth), (True, 0)):
+    bwd_launches = lambda: [getattr(adaln, f"adaln_{s}").bwd_launches for s in SITES]
+    for grad in (False, True):
         for leaf in (bp["qkv_kernel"], bp["ada_lin"]["kernel"]):
             leaf.requires_grad_(grad)
         ck, cv = tfm.init_kv_cache(cfg, 4, 21, torch.bfloat16, cuda)
-        before = _launches()
+        before, bwd_before = _launches(), bwd_launches()
         with torch.set_grad_enabled(grad):
-            tfm.blocks_decode(bp, x, cond, cfg, ck, cv, 0)
-        assert [b - a for a, b in zip(before, _launches())] == [added] * 3
+            out = tfm.blocks_decode(bp, x, cond, cfg, ck, cv, 0)[0]
+        assert [b - a for a, b in zip(before, _launches())] == [cfg.depth] * 3
+        if grad:
+            out.float().sum().backward()
+            assert bp["ada_lin"]["kernel"].grad is not None
+        assert ([b - a for a, b in zip(bwd_before, bwd_launches())]
+                == [0] + [cfg.depth if grad else 0] * 2)
 
 
 @pytest.mark.card
