@@ -25,6 +25,8 @@ import torch
 from controlvar_tpu_torch.config import ControlVARConfig, VARConfig, VQVAEConfig
 from controlvar_tpu_torch.ops import adaln
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 EPS = 1e-6
 WIDTHS = (1024, 1920)                 # ControlVAR-d16, ControlVAR-d30
 ULP_BF16 = 2.0 ** -8                  # half an ulp of bf16, relative

@@ -13,6 +13,8 @@ from controlvar_tpu.ops.attention import flash_decode_paired
 
 from controlvar_tpu_torch.ops.attention import decode_attention, decode_attention_plain
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 B, H, HD, LK = 2, 4, 64, 48
 
 

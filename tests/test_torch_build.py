@@ -5,6 +5,8 @@ import pytest
 
 from controlvar_tpu_torch.ops import _build
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture
 def csrc(tmp_path, monkeypatch):

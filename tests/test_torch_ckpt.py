@@ -39,6 +39,8 @@ from controlvar_tpu_torch.models.vqvae import VQVAE
 from controlvar_tpu_torch.train.param_groups import named_leaves
 from controlvar_tpu_torch.train.train_step import ControlVARTrainStep, init_train_state
 
+from tests.torch_fixtures import one_torch_thread, vq_to_jax  # noqa: F401
+
 VQ = dict(ch=32, patch_nums=(1, 2, 4), vocab_size=64)
 BASE = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4), vocab_size=64,
             cvae=32, num_classes=8)
@@ -46,29 +48,19 @@ CV = dict(BASE, mask_factor=2, multi_cond=True)
 ALL_OPTIONS = dict(CV, cos_attn=True, shared_aln=True, type_pos=True, separator=True)
 
 
-def _vq_to_jax(tree):
-    """The port's VQVAE tree as numpy in the JAX layout (OIHW -> HWIO)."""
-    if isinstance(tree, dict):
-        return {k: (v.numpy().transpose(2, 3, 1, 0) if k == "kernel" else _vq_to_jax(v))
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_vq_to_jax(v) for v in tree]
-    return tree.numpy()
-
-
 @pytest.fixture(scope="module")
 def models():
     """name -> (kind, port config, JAX config, numpy tree in the JAX layout)."""
     vq = VQVAEConfig(**VQ)
     out = {"vqvae": ("vqvae", vq, JVQCfg(**VQ),
-                     _vq_to_jax(VQVAE(vq, device="cpu").init_params(0)))}
+                     vq_to_jax(VQVAE(vq, device="cpu").init_params(0)))}
     cfg = VARConfig(**BASE)
     out["var"] = ("var", cfg, JVARCfg(**BASE),
                   to_jax_params(VARModel(cfg, device="cpu").init_params(1), cfg))
     cfg = ControlVARConfig(**CV)
     out["control_var"] = ("control_var", cfg, JCVCfg(**CV),
                           to_jax_params(ControlVARModel(cfg, device="cpu").init_params(2), cfg))
-    jp = JCVModel(JCVCfg(**ALL_OPTIONS)).init_params(jax.random.key(3))
+    jp = jax.jit(JCVModel(JCVCfg(**ALL_OPTIONS)).init_params)(jax.random.key(3))
     out["control_var_all_options"] = ("control_var", ControlVARConfig(**ALL_OPTIONS),
                                       JCVCfg(**ALL_OPTIONS),
                                       jax.tree_util.tree_map(np.asarray, jp))
@@ -81,8 +73,8 @@ def models():
     out["var_cos_attn_shared_aln"] = ("var", VARConfig(**var_opts), JVARCfg(**var_opts), tree)
     sep = dict(CV, separator=True)  # a fresh tree for surgery into the separator layout
     out["control_var_separator"] = ("control_var", ControlVARConfig(**sep), JCVCfg(**sep),
-                                    jax.tree_util.tree_map(np.asarray, JCVModel(
-                                        JCVCfg(**sep)).init_params(jax.random.key(4))))
+                                    jax.tree_util.tree_map(np.asarray, jax.jit(JCVModel(
+                                        JCVCfg(**sep)).init_params)(jax.random.key(4))))
     return out
 
 

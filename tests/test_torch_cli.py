@@ -55,21 +55,13 @@ from controlvar_tpu_torch.models.vqvae import VQVAE
 from controlvar_tpu_torch.ops import sampling as tsampling
 from controlvar_tpu_torch.train.param_groups import named_leaves
 
+from tests.torch_fixtures import one_torch_thread, raise_gates, vq_to_jax  # noqa: F401
+
 SMOKE = ["--depth", "2", "--vae_ch", "32", "--patch_nums", "1", "2", "4", "--seed", "0"]
 # the tokenizer subcommands read 256x256 images: the pyramid must end at 16
 SMOKE_256 = ["--depth", "2", "--vae_ch", "32", "--patch_nums", "1", "2", "4", "8", "16"]
 CPU = ["--device", "cpu"]
 TRAIN = [*SMOKE, "--batch_size", "2", "--steps", "2", *CPU]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    """Several test workers share the machine's cores: one torch thread
-    each (torch's default pool of one a core oversubscribes them)."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 # ---- the parser and the configs ----------------------------------------------
@@ -137,23 +129,6 @@ def test_yaml_recipes_merge_as_in_the_jax_cli():
 # ---- both CLIs on the same .pth files ----------------------------------------
 
 
-def _raise_gates(tree):
-    C = tree["blocks"]["ada_lin"]["bias"].shape[1] // 6
-    tree["blocks"]["ada_lin"]["bias"][:, :C] += 10.0
-    tree["blocks"]["ada_lin"]["bias"][:, C: 2 * C] += 1.0
-    return tree
-
-
-def _vq_to_jax(tree):
-    """The port's VQVAE tree as numpy in the JAX layout (OIHW -> HWIO)."""
-    if isinstance(tree, dict):
-        return {k: (v.numpy().transpose(2, 3, 1, 0) if k == "kernel" else _vq_to_jax(v))
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_vq_to_jax(v) for v in tree]
-    return tree.numpy()
-
-
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
     """model.pth (ControlVAR depth 2 at patch_nums 1 2 4), vae.pth (the
@@ -161,8 +136,8 @@ def files(tmp_path_factory):
     d = tmp_path_factory.mktemp("cli_files")
     jvq, jcfg = jcli._configs(jcli.build_parser().parse_args(["sample", *SMOKE]))
     tvq, tcfg = tcli._configs(tcli.parse_args(["sample", *SMOKE]))
-    jp = _raise_gates(to_jax_params(ControlVARModel(tcfg, device="cpu").init_params(5), tcfg))
-    jvp = _vq_to_jax(VQVAE(tvq, device="cpu").init_params(6))
+    jp = raise_gates(to_jax_params(ControlVARModel(tcfg, device="cpu").init_params(5), tcfg))
+    jvp = vq_to_jax(VQVAE(tvq, device="cpu").init_params(6))
     out = {"model": str(d / "model.pth"), "vae": str(d / "vae.pth")}
     jexport.save_torch_checkpoint(out["model"], jexport.export_control_var_state_dict(jp, jcfg))
     jexport.save_torch_checkpoint(out["vae"], jexport.export_vqvae_state_dict(jvp, jvq))

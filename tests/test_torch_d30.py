@@ -61,6 +61,8 @@ from controlvar_tpu_torch.models.vqvae import VQVAE
 from controlvar_tpu_torch.train.param_groups import named_leaves
 from controlvar_tpu_torch.train.train_step import ControlVARTrainStep, init_train_state
 
+from tests.torch_fixtures import one_torch_thread, vq_to_jax  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PNS = (1, 2, 4)
 CUT = dict(depth=2, patch_nums=PNS)
@@ -88,20 +90,10 @@ def _leaf_dict(tree):
             for path, leaf in flat}
 
 
-def _vqvae_to_jax(tree):
-    if isinstance(tree, dict):
-        return {k: (jnp.asarray(v.numpy().transpose(2, 3, 1, 0)) if k == "kernel"
-                    else _vqvae_to_jax(v)) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_vqvae_to_jax(v) for v in tree]
-    return jnp.asarray(tree.numpy())
-
-
 @pytest.fixture(scope="module")
 def d30():
     """The cut d30 in both packages on the same weights: random scale_mul
     (some heads clamped), the gates raised; and the ch-32 VQVAE."""
-    torch.set_num_threads(4)
     cfg, jcfg = _cut(tconfig), _cut(jconfig)
     tree = to_jax_params(ControlVARModel(cfg, device="cpu").init_params(0), cfg)
     b = tree["blocks"]
@@ -117,7 +109,7 @@ def d30():
     tvp = tv.init_params(0)
     return dict(cfg=cfg, jcfg=jcfg, tree=tree, jp=_jnp(tree),
                 tp=from_jax_params(tree, cfg, device="cpu"), clamped=clamped,
-                jv=JVQVAE(JVQ(**VQ)), jvp=_vqvae_to_jax(tvp), tv=tv, tvp=tvp)
+                jv=JVQVAE(JVQ(**VQ)), jvp=_jnp(vq_to_jax(tvp)), tv=tv, tvp=tvp)
 
 
 # ---- the config ----------------------------------------------------------------

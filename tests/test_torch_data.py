@@ -28,6 +28,8 @@ import controlvar_tpu_torch.data.rle as rle
 import controlvar_tpu_torch.data.transforms as transforms
 from controlvar_tpu_torch import native
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 PNS = (1, 2, 3, 4, 5, 6)   # scales >= 5 take the mask-derived weights
 
 

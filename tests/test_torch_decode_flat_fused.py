@@ -29,6 +29,8 @@ from controlvar_tpu_torch.ops.attention import (decode_attention, decode_attenti
                                                 decode_attention_fused_plain,
                                                 decode_attention_plain)
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 SCALE = 0.125
 
 

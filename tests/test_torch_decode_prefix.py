@@ -28,6 +28,8 @@ from controlvar_tpu_torch.ops.attention import (decode_attention_inplace,
                                                 decode_attention_prefix_plain,
                                                 flash_attention_plain)
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 B, H, HD, SCALE = 2, 4, 64, 0.125
 TINY = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4),
             vocab_size=64, cvae=32, num_classes=8, mask_factor=2, multi_cond=True)
@@ -136,7 +138,7 @@ def test_inplace_plain_is_write_then_prefix_plain():
 
 @pytest.fixture(scope="module")
 def weights():
-    jp = JModel(JCfg(**TINY)).init_params(jax.random.key(1))
+    jp = jax.jit(JModel(JCfg(**TINY)).init_params)(jax.random.key(1))
     return jp, from_jax_params(jax.tree_util.tree_map(np.asarray, jp), ControlVARConfig(**TINY),
                                device="cpu")
 

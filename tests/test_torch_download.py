@@ -9,6 +9,8 @@ import pytest
 
 from controlvar_tpu_torch.ckpt.download import CKPT_MAP, MD5_MAP, URL_MAP, get_ckpt_path, md5_hash
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 
 def test_cache_hit_returns_without_download(tmp_path, monkeypatch):
     p = tmp_path / CKPT_MAP["vgg_lpips"]

@@ -20,6 +20,8 @@ from controlvar_tpu_torch.ops.attention import (
     NEG_INF, flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_plain, flash_mha, tile_flags)
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 B, H, HD = 2, 2, 64
 SCALE = 0.125
 
@@ -55,9 +57,9 @@ def _mask(kind):
     return np.tril(np.ones((42, 42), bool))
 
 
-def _inputs(seed, L=42, dtype=np.float32):
+def _inputs(seed, L=42, dtype=np.float32, b=B, h=H):
     rng = np.random.default_rng(seed)
-    return [rng.normal(0, 1, (B, H, L, HD)).astype(dtype) for _ in range(4)]
+    return [rng.normal(0, 1, (b, h, L, HD)).astype(dtype) for _ in range(4)]
 
 
 @pytest.mark.parametrize("kind", ["block_causal", "tril", "tile_pattern"])
@@ -287,7 +289,9 @@ def test_forward_skipping_fully_masked_tiles_is_exact(kind):
     flags = tile_flags(torch.from_numpy(mask))
     if kind in ("d16", "d16_separator", "tile_pattern", "indep"):
         assert (flags == 2).any()
-    q, k, v = (torch.from_numpy(t) for t in _inputs(5, L)[:3])
+    # one batch row and one head: every tile still holds values of its own,
+    # and the JAX forward in interpret mode runs a quarter of the grid
+    q, k, v = (torch.from_numpy(t) for t in _inputs(5, L, b=1, h=1)[:3])
     tm = torch.from_numpy(mask)
     got, got_lse = online_softmax_skipping(q, k, v, tm, SCALE)
     want, want_lse = flash_attention_plain(q, k, v, tm, SCALE)

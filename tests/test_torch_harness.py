@@ -35,28 +35,17 @@ from controlvar_tpu_torch.eval.harness import _to_uint8
 from controlvar_tpu_torch.models.control_var import ControlVARModel
 from controlvar_tpu_torch.models.vqvae import VQVAE
 
+from tests.torch_fixtures import one_torch_thread, raise_gates, vq_to_jax  # noqa: F401
+
 TINY_VQ = dict(ch=32, patch_nums=(1, 2, 4), vocab_size=64)
 TINY = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4), vocab_size=64,
             cvae=32, num_classes=6, mask_factor=2, multi_cond=True)
 GREEDY = dict(cfg=(2.0, 2.0, 2.0), top_k=1)
-FID = dict(batch_size=3, images_per_class=5, num_classes=4)
-
-
-def _raise_gates(tree):
-    C = tree["blocks"]["ada_lin"]["bias"].shape[1] // 6
-    tree["blocks"]["ada_lin"]["bias"][:, :C] += 10.0
-    tree["blocks"]["ada_lin"]["bias"][:, C: 2 * C] += 1.0
-    return tree
-
-
-def _vq_to_jax(tree):
-    """The port's VQVAE tree as numpy in the JAX layout (OIHW -> HWIO)."""
-    if isinstance(tree, dict):
-        return {k: (v.numpy().transpose(2, 3, 1, 0) if k == "kernel" else _vq_to_jax(v))
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_vq_to_jax(v) for v in tree]
-    return tree.numpy()
+# against JAX: two class directories, each one batch of 3 under a batch size
+# of 4 (the ragged batch), so that each sampler compiles at one batch shape
+FID = dict(batch_size=4, images_per_class=3, num_classes=2)
+# the port alone: two batches a class (3 and a ragged 2) over four classes
+FID_SHARDS = dict(batch_size=3, images_per_class=5, num_classes=4)
 
 
 @pytest.fixture(scope="module")
@@ -67,8 +56,8 @@ def weights():
     trees for the port."""
     cfg, vq_cfg = ControlVARConfig(**TINY), VQVAEConfig(**TINY_VQ)
     tm, tv = ControlVARModel(cfg, device="cpu"), VQVAE(vq_cfg, device="cpu")
-    jp = _raise_gates(to_jax_params(tm.init_params(1), cfg))
-    jvp = _vq_to_jax(tv.init_params(0))
+    jp = raise_gates(to_jax_params(tm.init_params(1), cfg))
+    jvp = vq_to_jax(tv.init_params(0))
     return dict(jm=JModel(JCfg(**TINY)), jv=JVQVAE(JVQ(**TINY_VQ)),
                 jp=jax.tree_util.tree_map(jnp.asarray, jp),
                 jvp=jax.tree_util.tree_map(jnp.asarray, jvp), tm=tm, tv=tv,
@@ -81,10 +70,20 @@ def _port_harness(w, **kw):
     return SamplingHarness(w["tm"], w["tv"], compute_dtype=torch.float32, device="cpu", **kw)
 
 
-def _jax_fid(w, out_dir, monkeypatch, **kw):
-    monkeypatch.setattr(jharness.SamplingHarness, "compute_dtype", jnp.float32)
-    h = jharness.SamplingHarness(w["jm"], w["jv"], JSampleConfig(**GREEDY))
-    return h.generate_fid_set(w["jp"], w["jvp"], str(out_dir), **FID, **kw)
+@pytest.fixture(scope="module")
+def jax_fid(weights, tmp_path_factory):
+    """{gibbs: (image count, {path: pixels})} of the JAX harness's
+    generate_fid_set, one harness for both runs (the Gibbs run reuses the
+    joint sampler's compiles)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jharness.SamplingHarness, "compute_dtype", jnp.float32)
+        h = jharness.SamplingHarness(weights["jm"], weights["jv"], JSampleConfig(**GREEDY))
+        out = {}
+        for gibbs in (0, 1):
+            d = tmp_path_factory.mktemp(f"jax_fid{gibbs}")
+            n = h.generate_fid_set(weights["jp"], weights["jvp"], str(d), **FID, gibbs=gibbs)
+            out[gibbs] = (n, _tree(d))
+    return out
 
 
 def _port_fid(w, out_dir, harness=None, **kw):
@@ -121,12 +120,12 @@ def test_class_shard_equals_jax(num_classes):
 
 
 @pytest.mark.parametrize("gibbs", [0, 1])
-def test_generate_fid_set_matches_jax(weights, tmp_path, monkeypatch, gibbs):
-    n_jax = _jax_fid(weights, tmp_path / "jax", monkeypatch, gibbs=gibbs)
+def test_generate_fid_set_matches_jax(weights, jax_fid, tmp_path, gibbs):
+    n_jax, want = jax_fid[gibbs]
     n_port = _port_fid(weights, tmp_path / "port", **FID, gibbs=gibbs)
-    assert n_jax == n_port == 20
-    got, want = _tree(tmp_path / "port"), _tree(tmp_path / "jax")
-    assert sorted(got) == [f"{c}/{i}.png" for c in range(4) for i in range(5)]
+    assert n_jax == n_port == 6
+    got = _tree(tmp_path / "port")
+    assert sorted(got) == [f"{c}/{i}.png" for c in range(2) for i in range(3)]
     assert all(v.shape == (64, 64, 3) for v in got.values())
     _assert_pixels_close(got, want)
 
@@ -135,12 +134,12 @@ def test_two_shards_equal_one_shard(weights, tmp_path):
     """Sampling (top-k 8, top-p 0.9), so each image depends on its draws:
     a run split into two shards writes the same files, bit for bit."""
     h = _port_harness(weights, sample_cfg=SampleConfig(cfg=(2.0, 2.0, 2.0), top_k=8, top_p=0.9))
-    one = _port_fid(weights, tmp_path / "one", h, **FID)
-    two = sum(_port_fid(weights, tmp_path / "two", h, **FID, shard_id=s, num_shards=2)
+    one = _port_fid(weights, tmp_path / "one", h, **FID_SHARDS)
+    two = sum(_port_fid(weights, tmp_path / "two", h, **FID_SHARDS, shard_id=s, num_shards=2)
               for s in range(2))
     assert one == two == 20
     a, b = _tree(tmp_path / "one"), _tree(tmp_path / "two")
-    assert sorted(a) == sorted(b)
+    assert sorted(a) == sorted(b) == sorted(f"{c}/{i}.png" for c in range(4) for i in range(5))
     for k in a:
         np.testing.assert_array_equal(a[k], b[k])
     assert sorted(os.listdir(tmp_path / "two")) == ["0", "1", "2", "3"]

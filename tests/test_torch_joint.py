@@ -1,8 +1,8 @@
 """The port's joint (control, image) generation and the conditional
 sampler's cache modes, against the JAX package.
 
-Both sides run on the CPU in fp32 with the same weights (JAX init, carried
-over by ckpt/convert.py). Greedy sampling (top_k=1) makes the draw
+Both sides run on the CPU in fp32 with the same weights (the JAX init of
+the model and the port's of the tokenizer, carried over by ckpt/convert.py). Greedy sampling (top_k=1) makes the draw
 deterministic, so the per-scale sampled ids must be identical and the
 canvases agree to fp32 reassociation noise (atol 1e-4), whichever cache
 mode runs: stacked (K1's plain version), in place (K6's), or segmented with
@@ -30,6 +30,8 @@ from controlvar_tpu_torch.eval.harness import SamplingHarness
 from controlvar_tpu_torch.models.control_var import ControlVARModel
 from controlvar_tpu_torch.models.vqvae import VQVAE
 
+from tests.torch_fixtures import one_torch_thread, vq_to_jax  # noqa: F401
+
 # four scales, so that a window of one drops a middle segment at the last
 PNS = (1, 2, 3, 4)
 TINY_VQ = dict(ch=32, patch_nums=PNS, vocab_size=64)
@@ -44,13 +46,17 @@ def _tree(t):
 
 @pytest.fixture(scope="module")
 def setup():
+    """Both packages on one set of weights: the JAX init of the model
+    (jitted) and the port's init of the tokenizer (the JAX one's eager init
+    takes ~10 s on the CPU), each carried to the other package."""
     jm, jv = JModel(JCfg(**TINY)), JVQVAE(JVQ(**TINY_VQ))
-    jp, jvp = jm.init_params(jax.random.key(1)), jv.init_params(jax.random.key(0))
     cfg, vq_cfg = ControlVARConfig(**TINY), VQVAEConfig(**TINY_VQ)
-    return dict(jm=jm, jv=jv, jp=jp, jvp=jvp,
-                tm=ControlVARModel(cfg, device="cpu"), tv=VQVAE(vq_cfg, device="cpu"),
-                tp=from_jax_params(_tree(jp), cfg, device="cpu"),
-                tvp=from_jax_params(_tree(jvp), vq_cfg, device="cpu"),
+    tv = VQVAE(vq_cfg, device="cpu")
+    tvp = tv.init_params(0)
+    jp = jax.jit(jm.init_params)(jax.random.key(1))
+    return dict(jm=jm, jv=jv, jp=jp, jvp=jax.tree_util.tree_map(jnp.asarray, vq_to_jax(tvp)),
+                tm=ControlVARModel(cfg, device="cpu"), tv=tv,
+                tp=from_jax_params(_tree(jp), cfg, device="cpu"), tvp=tvp,
                 labels=np.array([1, 5]), ct=np.array([0, 2]))
 
 
@@ -59,7 +65,7 @@ def _with_sos_variant(s):
     bidirectional sign convention; the tokenizer is shared."""
     jcfg, cfg = JCfg(**{**TINY, **SOS_VARIANT}), ControlVARConfig(**{**TINY, **SOS_VARIANT})
     jm = JModel(jcfg)
-    jp = jm.init_params(jax.random.key(2))
+    jp = jax.jit(jm.init_params)(jax.random.key(2))
     return dict(s, jm=jm, jp=jp, tm=ControlVARModel(cfg, device="cpu"),
                 tp=from_jax_params(_tree(jp), cfg, device="cpu"))
 

@@ -26,6 +26,8 @@ from controlvar_tpu_torch.config import ControlVARConfig, VQVAEConfig
 from controlvar_tpu_torch.eval.stepwise import StepwiseJointSampler
 from controlvar_tpu_torch.models.vqvae import VQVAE
 
+from tests.torch_fixtures import one_torch_thread, raise_gates, vq_to_jax  # noqa: F401
+
 PNS = (1, 2, 4)
 TINY_VQ = dict(ch=32, patch_nums=PNS, vocab_size=64)
 BASE = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=PNS, vocab_size=64, cvae=32,
@@ -34,39 +36,18 @@ REPLACE = dict(BASE, mask_factor=1)
 SEPARATE = dict(BASE, mask_factor=2, multi_cond=True, separate_decoding=True)
 
 
-def _vqvae_to_jax(tree):
-    """The port's VQVAE params in the JAX layout: every kernel is a conv
-    kernel, OIHW -> HWIO (the inverse of `from_jax_params`)."""
-    if isinstance(tree, dict):
-        return {k: (jnp.asarray(v.numpy().transpose(2, 3, 1, 0)) if k == "kernel"
-                    else _vqvae_to_jax(v)) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_vqvae_to_jax(v) for v in tree]
-    return jnp.asarray(tree.numpy())
-
-
 @pytest.fixture(scope="module")
 def vq():
     tv = VQVAE(VQVAEConfig(**TINY_VQ), device="cpu")
     tvp = tv.init_params(0)
-    return dict(jv=JVQVAE(JVQ(**TINY_VQ)), jvp=_vqvae_to_jax(tvp), tv=tv, tvp=tvp)
-
-
-def _raise_gates(p):
-    """At init the AdaLN gate columns are 1e-3 of the rest, which leaves the
-    attention output out of the logits (a cache holding K in place of V
-    goes unseen); raising the attention gate by 10 and the FFN gate by 1
-    makes every layer's attention move the draws and canvases."""
-    C = p["blocks"]["ada_lin"]["bias"].shape[1] // 6
-    p["blocks"]["ada_lin"]["bias"][:, :C] += 10.0
-    p["blocks"]["ada_lin"]["bias"][:, C: 2 * C] += 1.0
-    return p
+    return dict(jv=JVQVAE(JVQ(**TINY_VQ)),
+                jvp=jax.tree_util.tree_map(jnp.asarray, vq_to_jax(tvp)), tv=tv, tvp=tvp)
 
 
 def _models(kw):
     cfg = ControlVARConfig(**kw)
     tm = torch_cv.ControlVARModel(cfg, device="cpu")
-    tp = _raise_gates(tm.init_params(1))
+    tp = raise_gates(tm.init_params(1))
     jp = jax.tree_util.tree_map(jnp.asarray, to_jax_params(tp, cfg))
     return jax_cv.ControlVARModel(JCfg(**kw)), tm, jp, tp
 

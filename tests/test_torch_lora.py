@@ -36,6 +36,8 @@ from controlvar_tpu_torch.models.vqvae import VQVAE
 from controlvar_tpu_torch.train.param_groups import named_leaves
 from controlvar_tpu_torch.train.train_step import ControlVARTrainStep, LoRAControlVARTrainStep
 
+from tests.torch_fixtures import one_torch_thread, vq_to_jax  # noqa: F401
+
 VQ = dict(ch=32, patch_nums=(1, 2, 4), vocab_size=128)
 TINY = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4), vocab_size=128,
             cvae=32, num_classes=8, mask_factor=2, multi_cond=True, cond_drop_rate=0.0)
@@ -56,16 +58,6 @@ class _Fp32Step(ControlVARTrainStep):
     compute_dtype = torch.float32
 
 
-def _vq_to_jax(tree):
-    """The port's VQVAE tree as numpy in the JAX layout (OIHW -> HWIO)."""
-    if isinstance(tree, dict):
-        return {k: (v.numpy().transpose(2, 3, 1, 0) if k == "kernel" else _vq_to_jax(v))
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_vq_to_jax(v) for v in tree]
-    return tree.numpy()
-
-
 @pytest.fixture(scope="module")
 def weights():
     """(numpy ControlVAR tree, JAX ControlVAR params, numpy VQVAE tree in the
@@ -73,7 +65,7 @@ def weights():
     cfg = ControlVARConfig(**TINY)
     tree = to_jax_params(ControlVARModel(cfg, device="cpu").init_params(1), cfg)
     vq = VQVAEConfig(**VQ)
-    vtree = _vq_to_jax(VQVAE(vq, device="cpu").init_params(0))
+    vtree = vq_to_jax(VQVAE(vq, device="cpu").init_params(0))
     jp = jax.tree_util.tree_map(jnp.asarray, tree)
     jl = jlora.init_lora_params(jax.random.key(2), jp, jlora.LoRAConfig())
     rng = np.random.default_rng(3)
@@ -178,11 +170,12 @@ def test_lora_steps_match_jax_and_leave_the_base_alone(weights):
     assert len(opt.param_groups) == 1 and len(opt.param_groups[0]["params"]) == 10
     jvp, tvp = jax.tree_util.tree_map(jnp.asarray, vtree), from_jax_params(
         vtree, VQVAEConfig(**VQ), device="cpu")
+    jfn = jax.jit(lambda s, p, vp, b, k: jstep.step(tx, s, p, vp, b, k, from_tokens=True))
     for i in range(2):
         batch = _tokens(10 + i)
         jb = jax.tree_util.tree_map(
             lambda a: jnp.asarray(a.astype(np.int32) if a.dtype.kind == "i" else a), batch)
-        jstate, ja = jstep.step(tx, jstate, jp, jvp, jb, jax.random.key(i), from_tokens=True)
+        jstate, ja = jfn(jstate, jp, jvp, jb, jax.random.key(i))
         tstate, ta = tstep.step(tstate, base, tvp, jax.tree_util.tree_map(torch.from_numpy, batch),
                                 from_tokens=True)
         np.testing.assert_allclose(float(ta["loss"]), float(ja["loss"]), rtol=1e-5)

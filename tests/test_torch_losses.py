@@ -46,20 +46,11 @@ from controlvar_tpu_torch.train.param_groups import named_leaves
 from controlvar_tpu_torch.train.train_vqvae import GANTrainState, VQVAETrainStep
 
 from test_torch_vqvae_train import (D_WEIGHT_RTOL, _adam_grads, _grads, close, grad_close,
-                                    leaf_dict, params_of, to_jax)
+                                    leaf_dict, params_of)
+
+from tests.torch_fixtures import one_torch_thread, vq_to_jax  # noqa: F401
 
 LR = 1e-4
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    """The suite runs several workers on the machine's cores; torch's
-    default pool of one thread a core in each oversubscribes them (a
-    twelvefold slowdown of this file's torch work under six workers)."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
-
 
 
 @pytest.fixture(scope="module")
@@ -67,7 +58,7 @@ def nets():
     """(LPIPS params, discriminator params) of the port and as JAX arrays."""
     lp = lpips.init_params(generator_for(0))
     dp = disc.init_params(generator_for(1))
-    as_jax = lambda t: jax.tree_util.tree_map(jnp.asarray, to_jax(t))
+    as_jax = lambda t: jax.tree_util.tree_map(jnp.asarray, vq_to_jax(t))
     return lp, dp, as_jax(lp), as_jax(dp)
 
 
@@ -78,7 +69,7 @@ def _img(seed, B=2, hw=32):
 def test_from_jax_params_takes_the_loss_trees(nets):
     lp, dp, _, _ = nets
     for tree in (lp, dp):
-        back = from_jax_params(to_jax(tree), None, device="cpu")
+        back = from_jax_params(vq_to_jax(tree), None, device="cpu")
         a, b = dict(named_leaves(back)), dict(named_leaves(tree))
         assert sorted(a) == sorted(b)
         for k in a:
@@ -304,7 +295,7 @@ def test_vqvae_train_step_matches_jax():
     state, lp = step.init_state(0)
     jstep = JVQStep(JVQVAE(JVQCfg(**cfg)), jvqp.VQLPIPSWithDiscriminator(disc_start=1000),
                     lr=LR)
-    as_jax = lambda t: jax.tree_util.tree_map(jnp.asarray, to_jax(t))
+    as_jax = lambda t: jax.tree_util.tree_map(jnp.asarray, vq_to_jax(t))
     jv, jd, jlp = (as_jax(t) for t in (state.vq_params, state.disc_params, lp))
     tx, jvo, jdo = jstep.make_optimizers(jv, jd)
     jstate = JGANState(jv, jd, jvo, jdo, jnp.zeros((), jnp.int32),

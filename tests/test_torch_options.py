@@ -38,6 +38,8 @@ from controlvar_tpu_torch.models.control_var import ControlVARModel, separator_m
 from controlvar_tpu_torch.models.var import VARModel
 from controlvar_tpu_torch.models.vqvae import VQVAE
 
+from tests.torch_fixtures import one_torch_thread, vq_to_jax  # noqa: F401
+
 PNS = (1, 2, 3, 4)
 TINY_VQ = dict(ch=32, patch_nums=PNS, vocab_size=64)
 BASE = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=PNS, vocab_size=64, cvae=32,
@@ -88,27 +90,19 @@ def _models(kw, var=False):
     if key not in _MODELS:
         jcfg, cfg = (JVCfg(**kw), VARConfig(**kw)) if var else (JCfg(**kw), ControlVARConfig(**kw))
         jm = JVAR(jcfg) if var else JModel(jcfg)
-        tree = _raise_gates(_tree(jm.init_params(jax.random.key(1))))
+        tree = _raise_gates(_tree(jax.jit(jm.init_params)(jax.random.key(1))))
         tm = VARModel(cfg, device="cpu") if var else ControlVARModel(cfg, device="cpu")
         _MODELS[key] = (jm, tm, jax.tree_util.tree_map(jnp.asarray, tree),
                         from_jax_params(tree, cfg, device="cpu"))
     return _MODELS[key]
 
 
-def _vqvae_to_jax(tree):
-    if isinstance(tree, dict):
-        return {k: (jnp.asarray(v.numpy().transpose(2, 3, 1, 0)) if k == "kernel"
-                    else _vqvae_to_jax(v)) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_vqvae_to_jax(v) for v in tree]
-    return jnp.asarray(tree.numpy())
-
-
 @pytest.fixture(scope="module")
 def vq():
     tv = VQVAE(VQVAEConfig(**TINY_VQ), device="cpu")
     tvp = tv.init_params(0)
-    return dict(jv=JVQVAE(JVQ(**TINY_VQ)), jvp=_vqvae_to_jax(tvp), tv=tv, tvp=tvp)
+    return dict(jv=JVQVAE(JVQ(**TINY_VQ)),
+                jvp=jax.tree_util.tree_map(jnp.asarray, vq_to_jax(tvp)), tv=tv, tvp=tvp)
 
 
 def _recorder(module, monkeypatch, traced=False):

@@ -30,6 +30,7 @@ import torch
 
 from controlvar_tpu_torch.config import MeshConfig
 from controlvar_tpu_torch.parallel import distributed, mesh
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 from tests.torch_world import World
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_parallel_worker.py")

@@ -51,6 +51,8 @@ from controlvar_tpu_torch.eval import parity as tparity
 from controlvar_tpu_torch.models.control_var import ControlVARModel
 from controlvar_tpu_torch.models.vqvae import VQVAE
 
+from tests.torch_fixtures import one_torch_thread, vq_to_jax  # noqa: F401
+
 PATCH_NUMS = (1, 2, 4)
 DEPTH = 2
 CPU = ["--device", "cpu"]
@@ -158,24 +160,6 @@ def _reference(monkeypatch, root):
         sys.modules.update(saved)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
-
-
-def _vq_to_jax(tree):
-    """The port's VQVAE tree as numpy in the JAX layout (OIHW -> HWIO)."""
-    if isinstance(tree, dict):
-        return {k: (v.numpy().transpose(2, 3, 1, 0) if k == "kernel" else _vq_to_jax(v))
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_vq_to_jax(v) for v in tree]
-    return tree.numpy()
-
-
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
     """vae.pth (ch 160, patch_nums 1 2 4), model.pth (depth 2, multi_cond,
@@ -193,7 +177,7 @@ def files(tmp_path_factory):
     out = {"model": str(d / "model.pth"), "vae": str(d / "vae.pth")}
     jexport.save_torch_checkpoint(out["model"], jexport.export_control_var_state_dict(
         jp, j_cfg_from_depth(DEPTH, multi_cond=True, cond_drop_rate=0.0)))
-    jvp = _vq_to_jax(VQVAE(vq_cfg, device="cpu").init_params(6))
+    jvp = vq_to_jax(VQVAE(vq_cfg, device="cpu").init_params(6))
     jexport.save_torch_checkpoint(out["vae"], jexport.export_vqvae_state_dict(
         jvp, JVQCfg(patch_nums=PATCH_NUMS)))
     out["stub"] = _write_stub(d / "stub")

@@ -12,6 +12,8 @@ import pathlib
 import pytest
 import torch
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "controlvar_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 

@@ -22,6 +22,8 @@ from controlvar_tpu_torch.config import VQVAEConfig
 from controlvar_tpu_torch.models.quantizer import MultiScaleQuantizer, phi_index_table
 from controlvar_tpu_torch.ops import resize
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 PNS = (1, 2, 3, 4, 6, 8)
 CFG = dict(vocab_size=64, patch_nums=PNS)
 

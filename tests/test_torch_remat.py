@@ -32,6 +32,8 @@ from controlvar_tpu_torch.train.param_groups import named_leaves
 from controlvar_tpu_torch.train.train_step import (ControlVARTrainStep, VARTrainStep,
                                                    init_train_state)
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 POLICIES = ("full", "dots", "dots_attn")
 TINY = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4), vocab_size=128,
             cvae=32, num_classes=8)
@@ -107,7 +109,7 @@ def _jax_blocks_grads(remat, monkeypatch):
     remat test), and the port's under remat, from the same weights."""
     cfg = JCfg(depth=4, embed_dim=64, num_heads=2, patch_nums=(1, 2, 3), vocab_size=64,
                cvae=8, num_classes=10)
-    params = JModel(cfg).init_params(jax.random.key(0))
+    params = jax.jit(JModel(cfg).init_params)(jax.random.key(0))
     rng = np.random.default_rng(0)
     B, L, C = 2, cfg.seq_len, cfg.embed_dim
     x = rng.standard_normal((B, L, C)).astype(np.float32)

@@ -14,6 +14,8 @@ from controlvar_tpu_torch.ops.sample_kernel import (
     sample_top_k_top_p_bisect)
 from controlvar_tpu_torch.ops.sampling import sample_top_k_top_p
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 
 def _separated_logits(V, seed):
     """Rows with no two values within the bisection resolution (80/2^26)."""

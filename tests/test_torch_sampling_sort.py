@@ -23,6 +23,8 @@ from controlvar_tpu_torch.ops.sample_kernel import sample_top_k_top_p_bisect
 from controlvar_tpu_torch.ops.sampling import (filtered_sorted_logits, gumbel_softmax,
                                                sample_top_k_top_p, top_k_top_p_filter)
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 V = 512
 N_DRAWS = 10_000
 

@@ -13,6 +13,8 @@ from controlvar_tpu.eval.serving import pipelined_map as jax_pipelined_map
 
 from controlvar_tpu_torch.eval.serving import pipelined_map
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 
 def test_results_in_submission_order_and_equal_sequential():
     f = lambda x: x * 2 + 1

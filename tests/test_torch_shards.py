@@ -13,6 +13,7 @@ import tarfile
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 import controlvar_tpu.data.build as jbuild
@@ -26,6 +27,8 @@ import controlvar_tpu_torch.data.imagenetc as imagenetc
 import controlvar_tpu_torch.data.shards as shards
 from controlvar_tpu_torch.config import VQVAEConfig
 from controlvar_tpu_torch.models.vqvae import VQVAE
+
+from tests.torch_fixtures import one_torch_thread, vq_to_jax  # noqa: F401
 
 PNS = (1, 2, 4)
 
@@ -103,15 +106,6 @@ def test_token_shard_loader_matches_jax(tmp_path, rng, shard_id, num_shards, ski
         shards.TokenShardLoader(str(tmp_path / "none_*.npz"))
 
 
-def _vqvae_to_jax(tree):
-    if isinstance(tree, dict):
-        return {k: (jnp.asarray(v.numpy().transpose(2, 3, 1, 0)) if k == "kernel"
-                    else _vqvae_to_jax(v)) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_vqvae_to_jax(v) for v in tree]
-    return jnp.asarray(tree.numpy())
-
-
 def test_pretokenize_writes_the_jax_packages_shards(tmp_path):
     """Both packages tokenize the same Loader batches (a separator-layout
     synthetic dataset, so the shards carry its ignore masks) with the same
@@ -129,8 +123,9 @@ def test_pretokenize_writes_the_jax_packages_shards(tmp_path):
                            compute_dtype=torch.float32)
     jloader = jbuild.Loader(jimagenetc.SyntheticControlDataset(**ds_kw), batch_size=2, seed=1,
                             num_workers=1)
-    jn = jshards.pretokenize(JVQVAE(JVQ(**vq_kw)), _vqvae_to_jax(tvp), jloader,
-                             str(tmp_path / "jax"), epochs=(0, 1), compute_dtype=jnp.float32)
+    jvp = jax.tree_util.tree_map(jnp.asarray, vq_to_jax(tvp))
+    jn = jshards.pretokenize(JVQVAE(JVQ(**vq_kw)), jvp, jloader, str(tmp_path / "jax"),
+                             epochs=(0, 1), compute_dtype=jnp.float32)
     assert n == jn == 6
     names = sorted(os.path.basename(p) for p in glob.glob(str(tmp_path / "port" / "*.npz")))
     assert names == sorted(os.path.basename(p)

@@ -25,19 +25,13 @@ from controlvar_tpu_torch.train.trainer import Trainer
 from controlvar_tpu_torch.train.train_step import ControlVARTrainStep, init_train_state
 from controlvar_tpu_torch.utils import tracker
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 TINY_VQ = dict(ch=32, patch_nums=(1, 2, 4), vocab_size=64)
 TINY = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4), vocab_size=64,
             cvae=32, num_classes=6, mask_factor=2, multi_cond=True, cond_drop_rate=0.5,
             drop_path_rate=0.2)
 B = 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,8 @@
 """The port's conditional generation as a whole, against the JAX package.
 
-Both harnesses run on the CPU in fp32 with the same weights (JAX init,
-carried over by ckpt/convert.py) and the same images. Greedy sampling
+Both harnesses run on the CPU in fp32 with the same weights (the JAX init
+of the model and the port's of the tokenizer, carried over by
+ckpt/convert.py) and the same images. Greedy sampling
 (top_k=1) makes the draw deterministic, so the per-scale sampled ids must be
 identical and the canvases agree to fp32 reassociation noise (atol 1e-4).
 """
@@ -26,6 +27,8 @@ from controlvar_tpu_torch.eval.harness import SamplingHarness
 from controlvar_tpu_torch.models.control_var import ControlVARModel
 from controlvar_tpu_torch.models.vqvae import VQVAE
 
+from tests.torch_fixtures import one_torch_thread, vq_to_jax  # noqa: F401
+
 TINY_VQ = dict(ch=32, patch_nums=(1, 2, 4), vocab_size=64)
 TINY = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4),
             vocab_size=64, cvae=32, num_classes=8, mask_factor=2, multi_cond=True)
@@ -34,13 +37,14 @@ TINY = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4),
 @pytest.fixture(scope="module")
 def setup():
     jm, jv = JModel(JCfg(**TINY)), JVQVAE(JVQ(**TINY_VQ))
-    jp = jm.init_params(jax.random.key(1))
-    jvp = jv.init_params(jax.random.key(0))
+    jp = jax.jit(jm.init_params)(jax.random.key(1))
     tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
     cfg, vq_cfg = ControlVARConfig(**TINY), VQVAEConfig(**TINY_VQ)
     tm, tv = ControlVARModel(cfg, device="cpu"), VQVAE(vq_cfg, device="cpu")
     tp = from_jax_params(tree(jp), cfg, device="cpu")
-    tvp = from_jax_params(tree(jvp), vq_cfg, device="cpu")
+    # the port's tokenizer init (the JAX one's eager init takes ~10 s on the CPU)
+    tvp = tv.init_params(0)
+    jvp = jax.tree_util.tree_map(jnp.asarray, vq_to_jax(tvp))
     rng = np.random.default_rng(0)
     imgs = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
     return dict(jm=jm, jv=jv, jp=jp, jvp=jvp, tm=tm, tv=tv, tp=tp, tvp=tvp,

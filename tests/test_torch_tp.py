@@ -2,7 +2,8 @@
 against the JAX package's mesh runs, on the CPU.
 
 Config: ControlVAR depth 2, C=256, 4 heads of 64, patch_nums (1, 2, 4),
-V=64, multi_cond, fp32, JAX init carried over by `from_jax_params`, every
+V=64, multi_cond, fp32, JAX init carried over by `from_jax_params` (the
+tokenizer's is the port's, carried the other way), every
 bias random (zero at init, it would hide a bias added on each rank before
 a row-parallel sum) and the AdaLN gates raised (attention by 10, FFN by 1)
 so that every layer's attention moves the draws. Two gloo worlds run together, one subprocess a rank
@@ -71,6 +72,7 @@ from controlvar_tpu_torch.parallel.tensor import (cut, leaf_split, merge_shards,
 from controlvar_tpu_torch.train import trainer as trainer_mod
 from controlvar_tpu_torch.train.param_groups import named_leaves
 from controlvar_tpu_torch.train.train_step import ControlVARTrainStep, init_train_state
+from tests.torch_fixtures import one_torch_thread, raise_gates, vq_to_jax  # noqa: F401
 from tests.torch_world import World
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_tp_worker.py")
@@ -95,25 +97,21 @@ class _Fp32Step(ControlVARTrainStep):
     compute_dtype = torch.float32
 
 
-def _raise_gates(tree):
-    C = tree["blocks"]["ada_lin"]["bias"].shape[1] // 6
-    tree["blocks"]["ada_lin"]["bias"][:, :C] += 10.0
-    tree["blocks"]["ada_lin"]["bias"][:, C: 2 * C] += 1.0
-    return tree
-
-
 def _inputs():
     """JAX params and their numpy trees, the batches and the forced ids,
     from seeds. The biases, zero at init, get random values (a bias added
     on every rank before the row-parallel sum, model times over, would not
-    show otherwise), then the gates are raised."""
-    jp = jax.tree_util.tree_map(np.array, JModel(JCfg(**TINY)).init_params(jax.random.key(1)))
+    show otherwise), then the gates are raised. The tokenizer is the port's
+    init in the JAX layout (the JAX one's eager init takes ~10 s on the
+    CPU)."""
+    jp = jax.tree_util.tree_map(np.array,
+                                jax.jit(JModel(JCfg(**TINY)).init_params)(jax.random.key(1)))
     rng = np.random.default_rng(0)
     for path, leaf in jax.tree_util.tree_flatten_with_path(jp)[0]:
         if str(getattr(path[-1], "key", "")).endswith("bias"):
             leaf += rng.normal(0.0, 0.02, leaf.shape).astype(leaf.dtype)
-    jp = _raise_gates(jp)
-    jvp = jax.tree_util.tree_map(np.asarray, JVQVAE(JVQCfg(**VQ)).init_params(jax.random.key(0)))
+    jp = raise_gates(jp)
+    jvp = vq_to_jax(VQVAE(VQVAEConfig(**VQ), device="cpu").init_params(0))
     img = lambda: (rng.random((B_TRAIN, 64, 64, 3)) * 2 - 1).astype(np.float32)
     batch = dict(image=img(), mask=img(), cls=rng.integers(0, 8, (B_TRAIN,)),
                  type=rng.integers(0, 4, (B_TRAIN,)))

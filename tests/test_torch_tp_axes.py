@@ -72,6 +72,7 @@ from controlvar_tpu_torch.ops.attention import mha_xla
 from controlvar_tpu_torch.parallel.tensor import leaf_split
 from controlvar_tpu_torch.train.param_groups import named_leaves
 from controlvar_tpu_torch.train.train_step import ControlVARTrainStep, init_train_state
+from tests.torch_fixtures import one_torch_thread, vq_to_jax  # noqa: F401
 from tests.torch_world import World
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -123,16 +124,6 @@ def _params(kw, rng):
     return tree
 
 
-def _vq_to_jax(tree):
-    """The port's VQVAE tree as numpy in the JAX layout (OIHW -> HWIO)."""
-    if isinstance(tree, dict):
-        return {k: (v.numpy().transpose(2, 3, 1, 0) if k == "kernel" else _vq_to_jax(v))
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_vq_to_jax(v) for v in tree]
-    return tree.numpy()
-
-
 def _inputs(kw):
     rng = np.random.default_rng(0)
     params = _params(kw, rng)
@@ -157,7 +148,7 @@ def _jax_runs(inp, model):
     kw = inp["cfg"]
     jm, jv = JModel(JCfg(**kw)), JVQVAE(JVQCfg(**VQ))
     jp = to_jax_params(inp["params"], ControlVARConfig(**kw))
-    jvp = _vq_to_jax(inp["vq_params"])
+    jvp = vq_to_jax(inp["vq_params"])
     mesh = j_make_mesh(data=1, model=model, devices=jax.devices())
     repl = NamedSharding(mesh, P())
     jvp_mesh = jax.device_put(jvp, jax.tree_util.tree_map(lambda _: repl, jvp))

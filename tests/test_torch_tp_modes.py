@@ -92,6 +92,7 @@ from controlvar_tpu_torch.train import trainer as trainer_mod
 from controlvar_tpu_torch.train.param_groups import named_leaves
 from controlvar_tpu_torch.train.train_step import (ControlVARTrainStep, LoRAControlVARTrainStep,
                                                    init_train_state)
+from tests.torch_fixtures import one_torch_thread, vq_to_jax  # noqa: F401
 from tests.torch_world import World
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_tp_modes_worker.py")
@@ -185,16 +186,6 @@ def _write_shards(directory, rng):
                           t["cls"].numpy(), t["type"].numpy(), t["ignore_mask"].numpy())
 
 
-def _vq_to_jax(tree):
-    """The port's VQVAE tree as numpy in the JAX layout (OIHW -> HWIO)."""
-    if isinstance(tree, dict):
-        return {k: (v.numpy().transpose(2, 3, 1, 0) if k == "kernel" else _vq_to_jax(v))
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_vq_to_jax(v) for v in tree]
-    return tree.numpy()
-
-
 def _jax_batch(batch, sharding):
     def put(v):
         if isinstance(v, list):
@@ -223,7 +214,7 @@ def _jax_runs(inp):
     samplers on the 2x4 mesh, the conditional samplers, the LoRA step."""
     devices = jax.devices()
     jv = JVQVAE(JVQCfg(**VQ))
-    jvp = _vq_to_jax(inp["vq_params"])
+    jvp = vq_to_jax(inp["vq_params"])
     labels, ct = (jnp.asarray(inp[k].numpy(), jnp.int32) for k in ("labels", "ct"))
     out = {}
     mesh24 = j_make_mesh(data=2, model=4, devices=devices)

@@ -48,6 +48,8 @@ from controlvar_tpu_torch.train.param_groups import named_leaves, weight_decay_m
 from controlvar_tpu_torch.train.train_step import (ControlVARTrainStep, init_train_state,
                                                    interleave_tokens)
 
+from tests.torch_fixtures import one_torch_thread, vq_to_jax  # noqa: F401
+
 VQ = dict(ch=32, patch_nums=(1, 2, 4), vocab_size=128)
 TINY = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4), vocab_size=128,
             cvae=32, num_classes=8, mask_factor=2, multi_cond=True)
@@ -76,11 +78,13 @@ class _Fp32Step(ControlVARTrainStep):
 
 @pytest.fixture(scope="module")
 def weights():
-    """(JAX params, numpy tree) of the ControlVAR and of the VQVAE."""
-    jp = JModel(JCfg(**TINY)).init_params(jax.random.key(1))
-    jvp = JVQVAE(JVQCfg(**VQ)).init_params(jax.random.key(0))
+    """(JAX params, numpy tree) of the ControlVAR and of the VQVAE: the JAX
+    init of the model, jitted, and the port's init of the tokenizer (the
+    JAX one's init takes ~10 s on the CPU), in the JAX layout."""
+    jp = jax.jit(JModel(JCfg(**TINY)).init_params)(jax.random.key(1))
+    vtree = vq_to_jax(VQVAE(VQVAEConfig(**VQ), device="cpu").init_params(0))
     return (jp, jax.tree_util.tree_map(np.asarray, jp),
-            jvp, jax.tree_util.tree_map(np.asarray, jvp))
+            jax.tree_util.tree_map(jnp.asarray, vtree), vtree)
 
 
 def _port(tree, cfg):
@@ -195,7 +199,7 @@ def test_grads_match_jax_with_and_without_remat(weights):
                                   compute_dtype=jnp.float32)
         return j_masked_ce(logits, jnp.asarray(labels), None)
 
-    want = _leaf_dict(jax.grad(loss)(jp))
+    want = _leaf_dict(jax.jit(jax.grad(loss))(jp))
     with_remat = _port_grads(tree, b, x, remat=True)
     without = _port_grads(tree, b, x, remat=False)
     _assert_grads_close(with_remat, want)
@@ -296,10 +300,10 @@ def _run_both(weights, batch_fn, from_tokens, j_step_cls, t_step_cls, n_steps=2)
     tvp = _port(vtree, VQVAEConfig(**VQ))
     gen = torch.Generator().manual_seed(0)
     j_aux, t_aux = [], []
+    jfn = jax.jit(lambda s, vp, b, k: jstep.step(tx, s, vp, b, k, from_tokens=from_tokens))
     for i in range(n_steps):
         batch = batch_fn(10 + i)
-        jstate, ja = jstep.step(tx, jstate, jvp, _to_jax(batch), jax.random.key(i),
-                                from_tokens=from_tokens)
+        jstate, ja = jfn(jstate, jvp, _to_jax(batch), jax.random.key(i))
         tstate, ta = tstep.step(tstate, tvp, _to_torch(batch), gen, from_tokens=from_tokens)
         j_aux.append(ja)
         t_aux.append(ta)
@@ -338,11 +342,19 @@ def test_pixel_step_matches_jax_with_fp32_tokenizer(weights):
     _assert_steps_close(j_aux, t_aux, jp, tp)
 
 
-def test_grad_accum_matches_big_batch(weights):
+# case: the model's options
+ACCUM_CASES = {"plain": {}, "separator": dict(separator=True, type_pos=True)}
+
+
+@pytest.mark.parametrize("case", list(ACCUM_CASES))
+def test_grad_accum_matches_big_batch(weights, case):
     """accum=2 gives the single big batch's update, under an ignore mask
-    whose weight is split unevenly between the microbatches."""
-    _, tree, _, vtree = weights
-    cfg = ControlVARConfig(**NO_DROP)
+    whose weight is split unevenly between the microbatches; a separator
+    model takes the separator-free mask spliced, and the splice holds for
+    the loss and for the global denominator alike. The port's init: the
+    JAX tree has no separator leaves."""
+    _, _, _, vtree = weights
+    cfg = ControlVARConfig(**NO_DROP, **ACCUM_CASES[case])
     optim = OptimConfig(base_lr=1e-3, total_batch_size=512)
     step = _Fp32Step(ControlVARModel(cfg, device="cpu"), VQVAE(VQVAEConfig(**VQ), device="cpu"),
                      optim, max_steps=100, warmup_steps=2, device="cpu")
@@ -353,7 +365,7 @@ def test_grad_accum_matches_big_batch(weights):
     batch["ignore_mask"] = torch.from_numpy(ign.astype(np.float32))
     results = []
     for accum in (1, 2):
-        state = init_train_state(_port(tree, cfg), optim)
+        state = init_train_state(ControlVARModel(cfg, device="cpu").init_params(2), optim)
         state, aux = step.step(state, vp, batch, from_tokens=True, accum=accum)
         results.append((aux, dict(named_leaves(state.params))))
     (a1, p1), (a2, p2) = results
@@ -365,8 +377,10 @@ def test_grad_accum_matches_big_batch(weights):
 
 
 def test_default_step_loss_decreases(weights):
-    """Eight bf16 pixel steps (the defaults: bf16 tokenizer and residual
-    stream, cond drop on) at lr 1e-2 on one batch."""
+    """Three bf16 pixel steps (the defaults: bf16 tokenizer and residual
+    stream, cond drop on) at lr 1e-2 on one batch: past the warmup's first
+    step the loss falls by about a quarter (4.94 -> 3.64-3.66 under
+    generator seeds 1, 2 and 3)."""
     _, tree, _, vtree = weights
     cfg = ControlVARConfig(**TINY)
     optim = OptimConfig(base_lr=1e-2, total_batch_size=512)
@@ -376,8 +390,8 @@ def test_default_step_loss_decreases(weights):
     state = init_train_state(_port(tree, cfg), optim)
     vp = _port(vtree, VQVAEConfig(**VQ))
     batch, gen = _to_torch(_pixels(30)), torch.Generator().manual_seed(1)
-    losses = [float(step.step(state, vp, batch, gen)[1]["loss"]) for _ in range(8)]
-    assert state.step == 8 and all(np.isfinite(losses))
+    losses = [float(step.step(state, vp, batch, gen)[1]["loss"]) for _ in range(3)]
+    assert state.step == 3 and all(np.isfinite(losses))
     assert losses[-1] < losses[0], losses
 
 

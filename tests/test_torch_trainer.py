@@ -48,22 +48,13 @@ from controlvar_tpu_torch.train.lr_schedule import lr_wd_at_step
 from controlvar_tpu_torch.train.param_groups import named_leaves
 from controlvar_tpu_torch.train.train_step import ControlVARTrainStep
 
+from tests.torch_fixtures import one_torch_thread, vq_to_jax  # noqa: F401
+
 VQ = dict(ch=32, patch_nums=(1, 2, 4), vocab_size=128)
 TINY = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4), vocab_size=128,
             cvae=32, num_classes=8, mask_factor=2, multi_cond=True, cond_drop_rate=0.0)
 OPTIM = dict(base_lr=1e-2, total_batch_size=512, grad_clip=1.0)
 B, N_SHARDS = 8, 4
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    """The suite runs several workers on the machine's cores; torch's
-    default pool of one thread a core in each oversubscribes them (a
-    twelvefold slowdown of this file's torch work under six workers)."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
-
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,15 +70,6 @@ class _JFp32Step(JTrainStep):
 class _Fp32Step(ControlVARTrainStep):
     tokenize_dtype = torch.float32
     compute_dtype = torch.float32
-
-
-def _vq_to_jax(tree):
-    if isinstance(tree, dict):
-        return {k: (jnp.asarray(v.numpy().transpose(2, 3, 1, 0)) if k == "kernel"
-                    else _vq_to_jax(v)) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_vq_to_jax(v) for v in tree]
-    return jnp.asarray(tree.numpy())
 
 
 @pytest.fixture(scope="module")
@@ -139,7 +121,8 @@ def test_fit_matches_the_jax_trainer_step_by_step(shards, weights, grad_accum):
             mock.patch.object(jtrainer, "ControlVARTrainStep", _JFp32Step):
         jt = jtrainer.Trainer(JCfg(**TINY), JVQCfg(**VQ),
                               JOptim(**OPTIM, epochs=1, grad_accum=grad_accum),
-                              JTokenShardLoader(shards), _vq_to_jax(vq_params),
+                              JTokenShardLoader(shards),
+                              jax.tree_util.tree_map(jnp.asarray, vq_to_jax(vq_params)),
                               from_tokens=True, log_every=1, log_fn=jlogs.append)
         jstate = jt.fit(jt.init_state(base_params=jparams))
     tr, logs = _port_trainer(shards, vq_params, grad_accum=grad_accum)

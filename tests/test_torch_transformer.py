@@ -20,6 +20,8 @@ from controlvar_tpu_torch.models import transformer as tfm
 from controlvar_tpu_torch.models.control_var import ControlVARModel
 from controlvar_tpu_torch.models.masks import attn_mask_for_config
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 TINY = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4),
             vocab_size=64, cvae=32, num_classes=8, mask_factor=2, multi_cond=True)
 VARIANTS = {"plain": {}, "indep": dict(separate_decoding=True, indep=True),
@@ -28,7 +30,7 @@ VARIANTS = {"plain": {}, "indep": dict(separate_decoding=True, indep=True),
 
 @pytest.fixture(scope="module")
 def weights():
-    jp = JModel(JCfg(**TINY)).init_params(jax.random.key(1))
+    jp = jax.jit(JModel(JCfg(**TINY)).init_params)(jax.random.key(1))
     return jp, jax.tree_util.tree_map(np.asarray, jp)
 
 

@@ -16,6 +16,8 @@ from controlvar_tpu.utils import misc as jmisc
 from controlvar_tpu_torch.utils import misc
 from controlvar_tpu_torch.utils.tracker import StepProfiler, Tracker, write_png
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 
 def test_seed_everything_seeds_python_numpy_and_torch():
     import random

@@ -31,6 +31,8 @@ from controlvar_tpu_torch.models import class_embedder
 from controlvar_tpu_torch.models.var import VARModel
 from controlvar_tpu_torch.models.vqvae import VQVAE
 
+from tests.torch_fixtures import one_torch_thread, raise_gates, vq_to_jax  # noqa: F401
+
 PNS = (1, 2, 3, 4)
 TINY_VQ = dict(ch=32, patch_nums=PNS, vocab_size=64)
 TINY = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=PNS, vocab_size=64, cvae=32,
@@ -44,34 +46,12 @@ def _tree(t):
     return jax.tree_util.tree_map(np.asarray, t)
 
 
-def _raise_gates(p):
-    """At init the AdaLN gate columns are 1e-3 of the rest, which leaves the
-    attention output out of the logits (a cache holding K in place of V
-    goes unseen); raising the attention gate by 10 and the FFN gate by 1
-    makes every layer's attention move the draws and canvases."""
-    C = p["blocks"]["ada_lin"]["bias"].shape[1] // 6
-    p["blocks"]["ada_lin"]["bias"][:, :C] += 10.0
-    p["blocks"]["ada_lin"]["bias"][:, C: 2 * C] += 1.0
-    return p
-
-
 def _models(cfg_kw, seed=1):
     """(JAX model, port model, JAX params, port params) of one config."""
     cfg = VARConfig(**cfg_kw)
     tm = VARModel(cfg, device="cpu")
-    tp = _raise_gates(tm.init_params(seed))
+    tp = raise_gates(tm.init_params(seed))
     return JVAR(JCfg(**cfg_kw)), tm, jax.tree_util.tree_map(jnp.asarray, to_jax_params(tp, cfg)), tp
-
-
-def _vqvae_to_jax(tree):
-    """The port's VQVAE params in the JAX layout: every kernel is a conv
-    kernel, OIHW -> HWIO (the inverse of `from_jax_params`)."""
-    if isinstance(tree, dict):
-        return {k: (jnp.asarray(v.numpy().transpose(2, 3, 1, 0)) if k == "kernel"
-                    else _vqvae_to_jax(v)) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_vqvae_to_jax(v) for v in tree]
-    return jnp.asarray(tree.numpy())
 
 
 @pytest.fixture(scope="module")
@@ -80,7 +60,8 @@ def vq():
     here)."""
     tv = VQVAE(VQVAEConfig(**TINY_VQ), device="cpu")
     tvp = tv.init_params(0)
-    return dict(jv=JVQVAE(JVQ(**TINY_VQ)), jvp=_vqvae_to_jax(tvp), tv=tv, tvp=tvp)
+    return dict(jv=JVQVAE(JVQ(**TINY_VQ)),
+                jvp=jax.tree_util.tree_map(jnp.asarray, vq_to_jax(tvp)), tv=tv, tvp=tvp)
 
 
 def _recorder(module, monkeypatch, traced=False):

@@ -33,6 +33,8 @@ from cvbench.reference import var as rv
 from cvbench.reference import vqvae as vq
 from cvbench.reference.prec import Prec, exact
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 PNS = [1, 2, 3, 4, 6]
 M = dict(depth=2, embed_dim=128, num_heads=2, mlp_ratio=4.0, num_classes=10, vocab_size=64,
          cvae=32, patch_nums=PNS, cos_attn=True, shared_aln=True, drop_path_rate=0.0,
@@ -43,14 +45,6 @@ CFG = dict(model=M, vqvae=V, init={"shared_gate_bias": [10.0, 1.0]})
 GUIDANCE = 1.5
 LABELS = torch.tensor([3, 7])
 LOGIT_ATOL, IMAGE_ATOL = 2e-5, 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")

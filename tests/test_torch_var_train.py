@@ -35,6 +35,8 @@ from controlvar_tpu_torch.ops.attention import tile_flags
 from controlvar_tpu_torch.train.param_groups import named_leaves
 from controlvar_tpu_torch.train.train_step import VARTrainStep, init_train_state
 
+from tests.torch_fixtures import one_torch_thread, vq_to_jax  # noqa: F401
+
 VQ = dict(ch=32, patch_nums=(1, 2, 4), vocab_size=128)
 TINY = dict(depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 4), vocab_size=128,
             cvae=32, num_classes=8, cond_drop_rate=0.0)
@@ -60,22 +62,12 @@ class _Fp32Step(VARTrainStep):
     compute_dtype = torch.float32
 
 
-def _vq_to_jax(tree):
-    """The port's VQVAE tree as numpy in the JAX layout (OIHW -> HWIO)."""
-    if isinstance(tree, dict):
-        return {k: (v.numpy().transpose(2, 3, 1, 0) if k == "kernel" else _vq_to_jax(v))
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_vq_to_jax(v) for v in tree]
-    return tree.numpy()
-
-
 @pytest.fixture(scope="module")
 def weights():
     """(numpy VAR tree, numpy VQVAE tree), both in the JAX layout."""
     cfg, vq = VARConfig(**TINY), VQVAEConfig(**VQ)
     return (to_jax_params(VARModel(cfg, device="cpu").init_params(1), cfg),
-            _vq_to_jax(VQVAE(vq, device="cpu").init_params(0)))
+            vq_to_jax(VQVAE(vq, device="cpu").init_params(0)))
 
 
 def test_forward_train_logits_match_jax(weights):
@@ -137,10 +129,11 @@ def test_two_pixel_steps_match_jax(weights):
     jvp = jax.tree_util.tree_map(jnp.asarray, vtree)
     tvp = from_jax_params(vtree, VQVAEConfig(**VQ), device="cpu")
     gen = torch.Generator().manual_seed(0)
+    jfn = jax.jit(lambda s, vp, b, k: jstep.step(tx, s, vp, b, k))
     for i in range(2):
         batch = _pixels(20 + i)
         jb = {"image": jnp.asarray(batch["image"]), "cls": jnp.asarray(batch["cls"], jnp.int32)}
-        jstate, ja = jstep.step(tx, jstate, jvp, jb, jax.random.key(i))
+        jstate, ja = jfn(jstate, jvp, jb, jax.random.key(i))
         tstate, ta = tstep.step(tstate, tvp, {k: torch.from_numpy(v) for k, v in batch.items()},
                                 gen)
         np.testing.assert_allclose(float(ta["loss"]), float(ja["loss"]), rtol=1e-5)

@@ -19,6 +19,8 @@ from controlvar_tpu_torch.config import VQVAEConfig
 from controlvar_tpu_torch.models.vqvae import VQVAE
 from controlvar_tpu_torch.ops.resize import upsample_nearest_2x
 
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
 CFG = dict(ch=32, patch_nums=(1, 2, 4), vocab_size=64)
 
 

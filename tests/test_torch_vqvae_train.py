@@ -47,6 +47,8 @@ from controlvar_tpu_torch.models.vqvae_mask import MaskVQVAE
 from controlvar_tpu_torch.train.param_groups import named_leaves
 from controlvar_tpu_torch.train.train_vqvae import DualGANTrainState, MaskVQVAETrainStep
 
+from tests.torch_fixtures import one_torch_thread, vq_to_jax  # noqa: F401
+
 VQ = dict(ch=32, patch_nums=(1, 2, 4), vocab_size=64)
 LR = 1e-4
 # The adaptive weight is ||d nll/dw|| / ||d gan/dw|| at the decoder's
@@ -56,30 +58,6 @@ LR = 1e-4
 # ~5e-3 in a few elements and its norm by ~6e-4 (on the same
 # reconstruction the discriminator's input gradients agree to 2e-6).
 D_WEIGHT_RTOL = 2e-3
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    """The suite runs several workers on the machine's cores; torch's
-    default pool of one thread a core in each oversubscribes them (a
-    twelvefold slowdown of this file's torch work under six workers)."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
-
-
-
-def to_jax(tree):
-    """A port tree as numpy in the JAX layout: every "kernel" is a conv,
-    OIHW -> HWIO; None stays None."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: (v.detach().numpy().transpose(2, 3, 1, 0) if k == "kernel"
-                    else to_jax(v)) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_jax(v) for v in tree]
-    return tree.detach().numpy()
 
 
 def leaf_dict(tree):
@@ -102,7 +80,7 @@ def tokenizer():
     vq = MaskVQVAE(VQVAEConfig(**VQ), device="cpu")
     params = vq.init_params(0)
     return vq, params, JMaskVQVAE(JVQCfg(**VQ)), jax.tree_util.tree_map(
-        jnp.asarray, to_jax(params))
+        jnp.asarray, vq_to_jax(params))
 
 
 def _images(seed, B=2, hw=64):
@@ -267,7 +245,7 @@ def test_mask_vqvae_init_and_export_match_jax(tokenizer):
             params, cfg, usage=None if u is None else {"ema_hits": torch.from_numpy(u[
                 "ema_hits"])}, mask_usage=None if mu is None else {
                 "ema_hits": torch.from_numpy(mu["ema_hits"])})
-        want = jexport.export_mask_vqvae_state_dict(to_jax(params), jcfg, usage=u,
+        want = jexport.export_mask_vqvae_state_dict(vq_to_jax(params), jcfg, usage=u,
                                                     mask_usage=mu)
         assert set(got) == set(want)
         for k in want:
@@ -317,13 +295,13 @@ def dual_step_result(tokenizer):
     # the D steps with the gate open (they take the same reconstructions)
     d_step = MaskVQVAETrainStep(vq, VQLPIPSWithDiscriminator(disc_start=0), lr=LR)
     jd_step = JMaskStep(jvq, JLoss(disc_start=0), lr=LR)
-    jv, jd = (jax.tree_util.tree_map(jnp.asarray, to_jax(t))
+    jv, jd = (jax.tree_util.tree_map(jnp.asarray, vq_to_jax(t))
               for t in (state.vq_params, state.disc_params))
     tx, jvo, jdo = jstep.make_optimizers(jv, jd)
     q = jvq.quantizer
     jstate = JDualState(jv, jd, jvo, jdo, jnp.zeros((), jnp.int32), q.init_usage_state(),
                         q.init_usage_state())
-    jlp = jax.tree_util.tree_map(jnp.asarray, to_jax(lpips_params))
+    jlp = jax.tree_util.tree_map(jnp.asarray, vq_to_jax(lpips_params))
     img, msk = _images(10), _images(11)
     jstate, jgm, (jri, jrm) = jax.jit(
         lambda s, lp, im, mk: jstep.g_step(tx, s, lp, im, mk))(jstate, jlp, img, msk)
